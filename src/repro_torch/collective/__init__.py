@@ -1,0 +1,79 @@
+"""Fault-tolerant butterfly collectives on PyTorch tensors.
+
+The port of :mod:`repro.collective`: the fail-stop fault model and the
+paper's 2^s − 1 tolerance accounting (:mod:`.faults`), host-side routing
+for the four variants (:mod:`.plan`), the combine algebra
+(:mod:`.combiners`), the simulated-ranks backend (:mod:`.comm`), and the
+plan executor with validity threading and self-healing restores
+(:mod:`.engine`).
+"""
+from .combiners import (
+    COMBINERS,
+    Combiner,
+    GramSumCombiner,
+    MaxCombiner,
+    MeanCombiner,
+    QRCombiner,
+    StackedCombiner,
+    SumCombiner,
+    get_combiner,
+    posdiag,
+    qr_r,
+    stacked,
+)
+from .comm import Comm, SimComm
+from .engine import (
+    execute_plan,
+    ft_allreduce,
+    recover_payload,
+    replica_fetch,
+)
+from .faults import (
+    NEVER,
+    FaultSpec,
+    sample_within_tolerance,
+    tolerance,
+    total_tolerance,
+    within_tolerance,
+)
+from .instrument import CommStats, InstrumentedComm
+from .packing import pack_sym, unpack_sym
+from .plan import VARIANTS, Plan, Step, ilog2, leaf_bytes, make_plan, payload_numel
+
+__all__ = [
+    "COMBINERS",
+    "Comm",
+    "CommStats",
+    "Combiner",
+    "FaultSpec",
+    "GramSumCombiner",
+    "InstrumentedComm",
+    "MaxCombiner",
+    "MeanCombiner",
+    "NEVER",
+    "Plan",
+    "QRCombiner",
+    "SimComm",
+    "StackedCombiner",
+    "Step",
+    "SumCombiner",
+    "VARIANTS",
+    "execute_plan",
+    "ft_allreduce",
+    "get_combiner",
+    "ilog2",
+    "leaf_bytes",
+    "make_plan",
+    "pack_sym",
+    "payload_numel",
+    "posdiag",
+    "qr_r",
+    "recover_payload",
+    "replica_fetch",
+    "sample_within_tolerance",
+    "stacked",
+    "tolerance",
+    "total_tolerance",
+    "unpack_sym",
+    "within_tolerance",
+]

@@ -1,0 +1,112 @@
+"""Communication backends for the fault-tolerant butterfly collectives.
+
+The engine in :mod:`repro_torch.collective.engine` is written once against
+this small interface.  This slice has one backend:
+
+  * :class:`SimComm` — a single-device simulation where every per-rank value
+    carries a leading ``(P,)`` axis and exchanges are gathers.  On the card
+    this is how one H100 runs all P ranks: one kernel launch covers the
+    whole (P, m_local, n) stack.
+
+Non-receiving ranks get zeros (the semantics of a collective permute whose
+destination list omits them), which the validity bits then adjudicate.
+
+``exchange`` maps over payload trees (tuples of tensors), so the engine can
+route a ``(payload, validity)`` pair or a stacked payload in one call.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from ._tree import tree_map
+
+__all__ = ["Comm", "SimComm"]
+
+Pair = tuple[int, int]
+
+
+class Comm:
+    """Interface: per-rank values with a leading (P,) axis."""
+
+    n_ranks: int
+
+    def ranks(self):
+        raise NotImplementedError
+
+    def take(self, host_vec):
+        """Per-rank view of a host (P,) vector."""
+        raise NotImplementedError
+
+    def exchange(self, x, perm: Sequence[Pair]):
+        """Permute per-rank payloads; non-receivers get zeros."""
+        raise NotImplementedError
+
+    def bwhere(self, cond, a, b):
+        """`where` with a per-rank condition, broadcast over the payload."""
+        raise NotImplementedError
+
+    def leaf_nbytes(self, leaf) -> int:
+        """Per-rank wire bytes of one payload leaf (the byte counters of
+        :mod:`repro_torch.collective.instrument` read this)."""
+        raise NotImplementedError
+
+
+@functools.lru_cache(maxsize=1024)
+def _perm_index(perm: tuple[Pair, ...], device: torch.device):
+    """src/dst index tensors of one perm, built once per (perm, device)."""
+    src = torch.tensor([s for s, _ in perm], dtype=torch.long, device=device)
+    dst = torch.tensor([d for _, d in perm], dtype=torch.long, device=device)
+    return src, dst
+
+
+@functools.lru_cache(maxsize=1024)
+def _host_vector(data: bytes, dtype: str, n: int, device: torch.device):
+    """A plan's (P,) host vector on ``device``, copied once per value."""
+    return torch.from_numpy(np.frombuffer(data, dtype=dtype, count=n).copy()).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimComm(Comm):
+    """Single-device simulation: leading (P,) axis on every per-rank value."""
+
+    n_ranks: int
+    device: torch.device = torch.device("cpu")
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    def ranks(self):
+        return self.take(np.arange(self.n_ranks, dtype=np.int64))
+
+    def take(self, host_vec):
+        vec = np.ascontiguousarray(host_vec)
+        if vec.shape != (self.n_ranks,):
+            raise ValueError(
+                f"expected a ({self.n_ranks},) host vector, got {vec.shape}"
+            )
+        return _host_vector(vec.tobytes(), vec.dtype.str, self.n_ranks, self.device)
+
+    def exchange(self, x, perm: Sequence[Pair]):
+        perm = tuple(tuple(p) for p in perm)
+
+        def go(leaf):
+            out = torch.zeros_like(leaf)
+            if not perm:
+                return out
+            src, dst = _perm_index(perm, leaf.device)
+            return out.index_copy_(0, dst, leaf.index_select(0, src))
+
+        return tree_map(go, x)
+
+    def bwhere(self, cond, a, b):
+        extra = max(a.ndim, b.ndim) - cond.ndim
+        return torch.where(cond.reshape(cond.shape + (1,) * extra), a, b)
+
+    def leaf_nbytes(self, leaf) -> int:
+        # leading (P,) axis: one rank's slice is 1/P of the array
+        return int(np.prod(leaf.shape[1:], dtype=np.int64)) * leaf.element_size()

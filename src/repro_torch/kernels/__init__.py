@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the CholeskyQR2 local QR and their wrappers.
+
+  * :mod:`.gram`, :mod:`.fused_apply_gram`, :mod:`.apply_right` — one
+    wrapper per CUDA kernel in ``csrc/`` (plain version for CPU tensors);
+  * :mod:`.ops` — the batched ``use_pallas`` switch and the CQR2 pipeline;
+  * :mod:`.ref` — the plain PyTorch versions;
+  * :mod:`.dispatch` — launch counters; :mod:`.traffic` — traffic records;
+  * :mod:`._build` — nvcc build and ctypes loading.
+
+Nothing is compiled at import.
+"""

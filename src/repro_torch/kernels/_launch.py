@@ -1,0 +1,80 @@
+"""Argument checks, row split and launch plumbing shared by the kernel
+wrappers (``gram``, ``fused_apply_gram``, ``apply_right``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["MAX_WIDTH", "check", "launch", "row_split"]
+
+MAX_WIDTH = 512          # widest Gram / product the kernels take (as the reference)
+DTYPES = (torch.float32, torch.bfloat16)
+_ROWS = 32               # rows of one streamed chunk (cqr2::kRows)
+_TARGET_CTAS = 4 * 132   # CTAs one launch aims for: four per H100 SM
+
+
+def check(op: str, a: torch.Tensor, w: torch.Tensor | None = None) -> tuple[int, int, int, int]:
+    """Validate a (…, m, n) operand and an optional (…, n, k) right factor.
+    Returns ``(batch, m, n, k)`` with the leading dims flattened; ``k`` is
+    ``n`` without ``w``."""
+    if a.ndim < 2:
+        raise ValueError(f"{op}: a must be (..., m, n), got shape {tuple(a.shape)}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: tensors on {a.device} are not supported; use cuda or cpu")
+    if a.dtype not in DTYPES:
+        raise TypeError(f"{op}: dtype {a.dtype} not supported; use float32 or bfloat16")
+    m, n = a.shape[-2:]
+    k = n
+    if w is not None:
+        if w.dtype != a.dtype:
+            raise TypeError(f"{op}: w has dtype {w.dtype}, a has {a.dtype}; they must match")
+        if w.device != a.device:
+            raise ValueError(f"{op}: w is on {w.device}, a on {a.device}")
+        if w.shape[:-2] != a.shape[:-2] or w.shape[-2] != n:
+            raise ValueError(
+                f"{op}: w must be (..., {n}, k) with a's leading dims "
+                f"{tuple(a.shape[:-2])}, got {tuple(w.shape)}"
+            )
+        k = w.shape[-1]
+    if max(n, k) > MAX_WIDTH or min(m, n, k) < 1:
+        raise ValueError(
+            f"{op}: widths n={n}, k={k} and rows m={m} must be in [1, {MAX_WIDTH}] "
+            "and >= 1 (the kernels keep at most 512 columns)"
+        )
+    for name, t in (("a", a), ("w", w)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+    batch = math.prod(a.shape[:-2])
+    if batch > 65535:
+        raise ValueError(f"{op}: {batch} leading matrices exceed one launch's 65535")
+    return batch, m, n, k
+
+
+def row_split(batch: int, m: int, width: int) -> tuple[int, int]:
+    """``(rows_per_split, splits)`` of the Gram kernels' row split.
+
+    A pure function of ``(batch, m, width)`` — never of the card — so that
+    ``gram(q)`` and ``fused_apply_gram`` over the same rows use the same
+    split (their bitwise contract) and every card gives the same bits.
+    """
+    tile = 32 if width <= 32 else (64 if width <= 64 else 128)
+    nt = -(-width // tile)
+    pairs = nt * (nt + 1) // 2
+    chunks = -(-m // _ROWS)
+    splits = max(1, min(chunks, -(-_TARGET_CTAS // (batch * pairs))))
+    rows_per_split = -(-chunks // splits) * _ROWS
+    return rows_per_split, -(-m // rows_per_split)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry on ``device``'s current stream and
+    raise if the launch returned a CUDA error."""
+    fn = _build.library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")

@@ -1,0 +1,147 @@
+"""Public wrappers over the Hopper kernels, and the CholeskyQR2 pipeline.
+
+``cholesky_qr2`` is the local QR of the TSQR variants: two rounds of (Gram
+→ n×n Cholesky → triangular inverse → panel product).  The pipeline is
+fused: round 1's panel apply also accumulates round 2's Gram
+(:func:`fused_apply_gram`), so the full factorization streams the tall
+operand 3× and the R-only variant (:func:`cholesky_qr2_r`, what the TSQR
+butterfly carries) exactly 2× with no tall intermediate in device memory.
+Every wrapper reports its traffic to :mod:`repro_torch.kernels.traffic`.
+
+``use_pallas=True`` keeps the reference's spelling and selects the
+hand-written Hopper kernels (``csrc/``); ``False`` runs the plain PyTorch
+versions (:mod:`repro_torch.kernels.ref`), the counterpart of the
+reference's jnp/XLA route.  Every wrapper takes arbitrary leading batch
+dims: the (P, m_local, n) stack of all simulated ranks is one launch.
+
+The small-matrix steps stay library calls, as in the reference: the
+Cholesky (``torch.linalg.cholesky_ex``) and the triangular inverse
+(``torch.linalg.solve_triangular``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref as _ref
+from . import traffic as _traffic
+from .apply_right import apply_right as _apply_kernel
+from .fused_apply_gram import fused_apply_gram as _fused_kernel
+from .gram import gram as _gram_kernel
+
+__all__ = [
+    "gram",
+    "apply_right",
+    "fused_apply_gram",
+    "cholesky_qr",
+    "cholesky_qr2",
+    "cholesky_qr2_r",
+    "tri_inv",
+]
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+# -- kernel entry points (batched, kernel/plain switchable) ------------------
+
+def gram(a, *, use_pallas: bool = False):
+    out = _gram_kernel(a) if use_pallas else _ref.gram(a)
+    _traffic.note("gram", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    return out
+
+
+def apply_right(a, w, *, use_pallas: bool = False):
+    out = _apply_kernel(a, w) if use_pallas else _ref.apply_right(a, w)
+    _traffic.note("apply_right", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+                  write_bytes=_nbytes(out))
+    return out
+
+
+def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
+    """One tall-operand sweep: ``Q = A @ W`` and ``G' = QᵀQ`` together.
+
+    Returns ``(q, g)`` — or just ``g`` when ``want_q=False``, in which case
+    the applied panel never reaches device memory.
+    """
+    if use_pallas:
+        out = _fused_kernel(a, w, want_q=want_q)
+    else:
+        q, g = _ref.fused_apply_gram(a, w)
+        out = (q, g) if want_q else g
+    g_out = out[1] if want_q else out
+    q_bytes = _nbytes(out[0]) if want_q else 0
+    _traffic.note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+                  write_bytes=q_bytes + _nbytes(g_out))
+    return out
+
+
+# -- composed ops -------------------------------------------------------------
+
+def tri_inv(r: torch.Tensor) -> torch.Tensor:
+    """Inverse of an upper-triangular (…, n, n) factor, in ``r``'s dtype."""
+    eye = torch.eye(r.shape[-1], dtype=r.dtype, device=r.device)
+    return torch.linalg.solve_triangular(r, eye, upper=True)
+
+
+def _posdiag(r: torch.Tensor) -> torch.Tensor:
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    s = torch.where(d < 0, -1.0, 1.0).to(r.dtype)
+    return r * s[..., :, None]
+
+
+def _chol_upper(g: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular Cholesky factor of a Gram matrix (positive diag).
+
+    A matrix that is not positive definite gives a factor whose triangle is
+    all NaN (zeros elsewhere), as the reference's ``jnp.linalg.cholesky``
+    does: ``cholesky_ex`` reports it in ``info`` without a host sync, and
+    the factor is NaN-filled there.
+    """
+    low, info = torch.linalg.cholesky_ex(g)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(low, float("nan")).tril(), low).mT
+
+
+def _weights(r: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """R⁻¹ cast to the storage dtype, contiguous for the kernels."""
+    return tri_inv(r).to(dtype).contiguous()
+
+
+def cholesky_qr(a, *, use_pallas: bool = False):
+    """One CholeskyQR round.  a: (…, m, n) → (Q (…, m, n), R (…, n, n) f32)."""
+    r = _chol_upper(gram(a, use_pallas=use_pallas))
+    q = apply_right(a, _weights(r, a.dtype), use_pallas=use_pallas)
+    return q, r
+
+
+def cholesky_qr2(a, *, use_pallas: bool = False, fused: bool = True):
+    """CholeskyQR2: Householder-grade orthogonality for κ(A) ≲ 1/√ε.
+
+    ``fused=True`` (default) rides :func:`fused_apply_gram`: 3 tall-operand
+    sweeps (A, A, Q₁) instead of the unfused 4 (A, A, Q₁, Q₁).
+    """
+    if not fused:
+        q1, r1 = cholesky_qr(a, use_pallas=use_pallas)
+        q, r2 = cholesky_qr(q1, use_pallas=use_pallas)
+        return q, _posdiag(r2 @ r1)
+    r1 = _chol_upper(gram(a, use_pallas=use_pallas))                 # sweep 1
+    q1, g2 = fused_apply_gram(a, _weights(r1, a.dtype),              # sweep 2
+                              use_pallas=use_pallas)
+    r2 = _chol_upper(g2)
+    q = apply_right(q1, _weights(r2, a.dtype), use_pallas=use_pallas)  # sweep 3
+    return q, _posdiag(r2 @ r1)
+
+
+def cholesky_qr2_r(a, *, use_pallas: bool = False):
+    """CholeskyQR2, R factor only — **2 sweeps** over the tall operand.
+
+    The TSQR local QR: sweep 1 is the Gram of A; sweep 2 is
+    :func:`fused_apply_gram` with ``want_q=False``.  Bitwise equal to
+    ``cholesky_qr2(a)[1]`` (same row split, same cast points).
+    """
+    r1 = _chol_upper(gram(a, use_pallas=use_pallas))                 # sweep 1
+    g2 = fused_apply_gram(a, _weights(r1, a.dtype),                  # sweep 2
+                          use_pallas=use_pallas, want_q=False)
+    r2 = _chol_upper(g2)
+    return _posdiag(r2 @ r1)

@@ -1,0 +1,51 @@
+"""Plain PyTorch versions of the CholeskyQR2 kernels.
+
+The CPU tests run these, a kernel wrapper takes one only for a tensor on the
+CPU, and the card checks compare each kernel against its version here.
+float32 products run in full float32: a CUDA tensor would need
+``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default), which
+the card checks set explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gram", "apply_right", "fused_apply_gram", "cholesky_qr", "cholesky_qr2"]
+
+
+def gram(a: torch.Tensor) -> torch.Tensor:
+    """G = AᵀA accumulated in float32.  a: (..., m, n) → (..., n, n) f32."""
+    a32 = a.to(torch.float32)
+    return a32.mT @ a32
+
+
+def apply_right(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A @ W with float32 accumulation, result in A's dtype.  w: (..., n, k)."""
+    return (a.to(torch.float32) @ w.to(torch.float32)).to(a.dtype)
+
+
+def fused_apply_gram(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q = A @ W and G' = QᵀQ of the *stored* (cast) Q."""
+    q = apply_right(a, w)
+    return q, gram(q)
+
+
+def _posdiag(r: torch.Tensor) -> torch.Tensor:
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    s = torch.where(d < 0, -1.0, 1.0).to(r.dtype)
+    return r * s[..., :, None]
+
+
+def cholesky_qr(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One CholeskyQR round: Q = A·R⁻¹ with R = chol(AᵀA)ᵀ."""
+    r = torch.linalg.cholesky(gram(a)).mT
+    eye = torch.eye(r.shape[-1], dtype=r.dtype, device=r.device)
+    rinv = torch.linalg.solve_triangular(r, eye, upper=True)
+    return apply_right(a, rinv), r
+
+
+def cholesky_qr2(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """CholeskyQR2 — two rounds."""
+    q1, r1 = cholesky_qr(a)
+    q, r2 = cholesky_qr(q1)
+    return q, _posdiag(r2 @ r1)

@@ -1,0 +1,82 @@
+"""Device-memory traffic model for the CQR2 kernel pipeline.
+
+Every wrapper in :mod:`repro_torch.kernels.ops` notes, as it is called, the
+bytes it streams from and to device memory and whether the call is a
+*sweep* over a tall operand (the (m, n) panel stream; the n×n Cholesky and
+inverse work is not).  The records for a call equal the reference's
+(:mod:`repro.kernels.traffic`) for the same shapes: CholeskyQR2's R factor
+takes **2** tall sweeps (``cholesky_qr2_r``), the explicit Q **3**
+(``cholesky_qr2``) and the unfused pipeline 4.
+
+Usage::
+
+    with track_traffic() as t:
+        ops.cholesky_qr2_r(a, use_pallas=True)
+    assert t.tall_sweeps == 2
+
+PyTorch runs eagerly, so every record has ``traces=0``; the field is kept
+so records compare one to one with the reference's.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+__all__ = ["KernelTraffic", "note", "track_traffic"]
+
+
+@dataclasses.dataclass
+class KernelTraffic:
+    """Accumulated per-op device-memory traffic records."""
+
+    records: list[dict] = dataclasses.field(default_factory=list)
+
+    @property
+    def tall_sweeps(self) -> int:
+        """Number of sweeps over a tall (panel-streamed) operand."""
+        return sum(r["sweeps"] for r in self.records)
+
+    @property
+    def read_bytes(self) -> int:
+        return sum(r["read_bytes"] for r in self.records)
+
+    @property
+    def write_bytes(self) -> int:
+        return sum(r["write_bytes"] for r in self.records)
+
+
+_ACTIVE: list[KernelTraffic] = []
+
+
+def note(op: str, *, sweeps: int = 0, read_bytes: int = 0,
+         write_bytes: int = 0, dispatches: int = 1, traces: int = 0,
+         rounds: int = 0, wire_bytes: int = 0, overlapped: int = 0) -> None:
+    """Record one kernel-wrapper call into every active tracker (no-op when
+    nothing is tracking).  The record has the reference's keys."""
+    if not _ACTIVE:
+        return
+    rec = {
+        "op": op,
+        "sweeps": int(sweeps),
+        "read_bytes": int(read_bytes),
+        "write_bytes": int(write_bytes),
+        "dispatches": int(dispatches),
+        "traces": int(traces),
+        "rounds": int(rounds),
+        "wire_bytes": int(wire_bytes),
+        "overlapped": int(overlapped),
+    }
+    for t in _ACTIVE:
+        t.records.append(rec)
+
+
+@contextlib.contextmanager
+def track_traffic():
+    """Context manager yielding a :class:`KernelTraffic` that observes every
+    ``ops``-level kernel call made inside the block."""
+    t = KernelTraffic()
+    _ACTIVE.append(t)
+    try:
+        yield t
+    finally:
+        _ACTIVE.remove(t)

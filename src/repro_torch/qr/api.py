@@ -1,0 +1,276 @@
+"""The QR entry facade: one config object, one ``factorize`` call.
+
+:class:`QRConfig` has the reference's fields, enums and validation, so a
+config transfers one to one.  :func:`factorize` routes by input rank:
+
+  ==========================  ===========================================
+  input                       driver
+  ==========================  ===========================================
+  (P, m_local, n)             TSQR on P simulated ranks (this slice)
+  (B, P, m_local, n)          B independent TSQRs, one launch per kernel
+  ==========================  ===========================================
+
+Routes that wait for later slices raise ``NotImplementedError`` naming
+their ROADMAP item: the blocked driver (``panel_width`` an int, A.7),
+meshes (``mesh=``, A.3), the Gram butterfly (``gram=True``, A.3) and coded
+redundancy (``redundancy="coded"``, A.8).
+
+Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
+when there is none; pass ``device="cpu"`` to run on the CPU (the kernels'
+plain versions).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from repro_torch.collective.faults import FaultSpec
+from repro_torch.collective.plan import VARIANTS
+
+__all__ = [
+    "Fuse",
+    "Pipeline",
+    "QRConfig",
+    "Recover",
+    "Redundancy",
+    "factorize",
+    "resolve_device",
+]
+
+
+class _CoercibleEnum(enum.Enum):
+    """Enum with string coercion and an actionable failure mode."""
+
+    @classmethod
+    def coerce(cls, value):
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, str):
+            try:
+                return cls(value.lower())
+            except ValueError:
+                pass
+        options = ", ".join(f"{cls.__name__}.{m.name} ({m.value!r})" for m in cls)
+        raise ValueError(
+            f"{cls.__name__.lower()} must be one of: {options}; "
+            f"got {value!r}.  Import the enum from repro_torch.qr.api "
+            "(string spellings are accepted case-insensitively)."
+        )
+
+
+class Pipeline(_CoercibleEnum):
+    """Blocked driver: compiled pipeline vs eager per-panel driver."""
+
+    AUTO = "auto"
+    ON = "on"
+    OFF = "off"
+
+
+class Fuse(_CoercibleEnum):
+    """Blocked driver: one stacked butterfly per panel vs two."""
+
+    AUTO = "auto"
+    ON = "on"
+    OFF = "off"
+
+
+class Recover(_CoercibleEnum):
+    """Blocked driver: replica-fetch restoration of lost ranks."""
+
+    REPLICA = "replica"
+    OFF = "off"
+
+
+class Redundancy(_CoercibleEnum):
+    """Which fault-tolerance scheme backs the panel reductions: the paper's
+    butterfly replicas, or checksum coding (not yet ported)."""
+
+    BUTTERFLY = "butterfly"
+    CODED = "coded"
+
+
+_LOCAL_R = ("auto", "chol", "jnp", "cqr2", "cqr2_pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class QRConfig:
+    """Every static policy knob of a QR factorization, in one frozen value.
+
+    ``panel_width=None`` selects the single-panel TSQR workload.
+    ``local_r="auto"`` resolves to ``"jnp"`` (Householder) for TSQR, which
+    runs no kernel; ``"cqr2_pallas"`` runs CholeskyQR2 on the Hopper
+    kernels.  ``use_pallas``, ``interpret``, ``block_rows``, ``pipeline``,
+    ``fuse`` and ``recover`` are accepted and validated as in the reference
+    so that configs transfer; the TSQR route does not read them.
+    """
+
+    panel_width: int | None = None
+    variant: str = "redundant"
+    local_r: str = "auto"
+    reorth: int = 1
+    compute_q: bool = False
+    use_pallas: bool = False
+    interpret: bool | None = None
+    block_rows: int | None = None
+    pipeline: Pipeline = Pipeline.AUTO
+    fuse: Fuse = Fuse.AUTO
+    recover: Recover = Recover.REPLICA
+    gram: bool = False
+    redundancy: Redundancy = Redundancy.BUTTERFLY
+    parity: int = 2
+
+    def __post_init__(self):
+        coerce = object.__setattr__
+        coerce(self, "pipeline", Pipeline.coerce(self.pipeline))
+        coerce(self, "fuse", Fuse.coerce(self.fuse))
+        coerce(self, "recover", Recover.coerce(self.recover))
+        coerce(self, "redundancy", Redundancy.coerce(self.redundancy))
+        if self.panel_width is not None and self.panel_width <= 0:
+            raise ValueError(
+                f"panel_width must be a positive int or None (single-panel "
+                f"TSQR), got {self.panel_width!r}"
+            )
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r}; choose from {VARIANTS}")
+        if isinstance(self.local_r, str) and self.local_r not in _LOCAL_R:
+            raise ValueError(
+                f"unknown local_r {self.local_r!r}; choose from {_LOCAL_R} "
+                "or pass a callable mapping a panel to its R factor"
+            )
+        if self.reorth < 0:
+            raise ValueError(f"reorth must be >= 0, got {self.reorth}")
+        if self.block_rows is not None and self.block_rows <= 0:
+            raise ValueError(
+                f"block_rows must be a positive int or None, got {self.block_rows!r}"
+            )
+        if self.gram and self.panel_width is not None:
+            raise ValueError(
+                "gram=True selects the Gram-butterfly TSQR, which factors "
+                "the whole matrix as one panel — it is incompatible with "
+                f"panel_width={self.panel_width} (use panel_width=None)"
+            )
+        if self.panel_width is None and self.local_r == "chol":
+            raise ValueError(
+                "local_r='chol' derives the panel R from the blocked "
+                "driver's lookahead Gram accumulator, which the single-panel "
+                "TSQR does not run; use local_r='auto'/'jnp'/'cqr2'/"
+                "'cqr2_pallas', or gram=True for the Gram-butterfly TSQR"
+            )
+        if self.parity < 1:
+            raise ValueError(
+                f"parity must be >= 1 (the number of checksum ranks the "
+                f"coded scheme adds), got {self.parity}"
+            )
+        if self.redundancy is Redundancy.CODED:
+            if self.gram:
+                raise ValueError(
+                    "redundancy='coded' codes the per-rank R contributions; "
+                    "the Gram-butterfly TSQR reduces a Gram matrix over the "
+                    "butterfly instead — the two schemes do not compose "
+                    "(use gram=False)"
+                )
+            if self.pipeline is Pipeline.ON:
+                raise ValueError(
+                    "pipeline='on' demands the compiled butterfly pipeline, "
+                    "which is replica-redundancy only; the coded scheme runs "
+                    "the eager per-panel driver (use pipeline='auto' or 'off')"
+                )
+
+    def resolved_local_r(self) -> str:
+        """Concrete local factorization for the selected workload."""
+        if self.local_r != "auto":
+            return self.local_r
+        return "chol" if self.panel_width is not None else "jnp"
+
+    def factorizer(self):
+        """The :class:`~repro_torch.qr.panel.PanelFactorizer` this config implies."""
+        from .panel import PanelFactorizer
+
+        local_r = self.resolved_local_r()
+        return PanelFactorizer(
+            local_qr="jnp" if local_r == "chol" else local_r, reorth=self.reorth
+        )
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; raise when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the port runs on the GPU by "
+                "default — pass device=\"cpu\" to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    elif not isinstance(a, torch.Tensor):
+        raise TypeError(f"factorize takes a numpy array or a tensor, got {type(a).__name__}")
+    return a.to(device).contiguous()
+
+
+def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
+              mesh=None, axis: str | None = None):
+    """Factorize ``a`` (numpy array or tensor) under ``config``.
+
+    3-D input is P row blocks on simulated ranks; 4-D input is a batch of B
+    such stacks factored together (fault-free only).  ``faults`` is a
+    :class:`~repro_torch.collective.faults.FaultSpec`.  Returns
+    :class:`~repro_torch.qr.tsqr.TSQRResult`.
+    """
+    from . import tsqr as _tsqr
+
+    if config is None:
+        config = QRConfig()
+    elif not isinstance(config, QRConfig):
+        raise TypeError(
+            f"config must be a repro_torch.qr.api.QRConfig, got "
+            f"{type(config).__name__} — construct one (all fields have "
+            "defaults) rather than passing loose kwargs"
+        )
+    if mesh is not None or axis is not None:
+        raise NotImplementedError(
+            "mesh= runs the ranks as separate processes, which waits for "
+            "DistComm (ROADMAP A.3); pass (P, m_local, n) blocks without a mesh"
+        )
+    if config.panel_width is not None:
+        raise NotImplementedError(
+            "the blocked general-matrix QR (panel_width an int) is the next "
+            "slice of the port (ROADMAP A.7); use panel_width=None for TSQR"
+        )
+    if config.gram:
+        raise NotImplementedError(
+            "gram=True (the Gram-butterfly TSQR) is a mesh-only driver, which "
+            "waits for DistComm (ROADMAP A.3)"
+        )
+    if config.redundancy is Redundancy.CODED:
+        raise NotImplementedError(
+            "redundancy='coded' waits for the coded planner's port (ROADMAP A.8)"
+        )
+    if faults is not None and not isinstance(faults, FaultSpec):
+        raise TypeError(
+            f"faults must be a FaultSpec for this workload "
+            f"(panel_width=None), got {type(faults).__name__}"
+        )
+    ndim = getattr(a, "ndim", None)
+    if ndim not in (3, 4):
+        raise ValueError(
+            f"cannot route input of shape {getattr(a, 'shape', None)}: "
+            "factorize expects (P, m_local, n) row blocks or a batched "
+            "(B, P, m_local, n) stack"
+        )
+    if ndim == 4 and faults is not None:
+        raise ValueError(
+            "batched factorization is the fault-free hot path; factor "
+            "faulted matrices one at a time through the 3-D entry instead"
+        )
+    blocks = _as_tensor(a, resolve_device(device))
+    if ndim == 3:
+        return _tsqr._factorize_sim(blocks, config, fault_spec=faults)
+    return _tsqr._factorize_batched(blocks, config)

@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: no module of ``repro_torch``, and not
+``chip_smoke.py``, imports JAX or the JAX package."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+print(json.dumps({"modules": names, "foreign": loaded}))
+"""
+
+
+def test_importing_every_port_module_loads_no_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                         env=env, timeout=300, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["foreign"] == []
+    assert {"repro_torch.qr.api", "repro_torch.kernels.ops",
+            "repro_torch.collective.engine"} <= set(report["modules"])
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", *sorted(PACKAGE.rglob("*.py"))],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
