@@ -50,7 +50,7 @@ VARIANTS = ("tree", "redundant", "replace", "selfhealing")
 TOL = {"float32": 5e-4, "bfloat16": 3e-2}
 R_TOL = 5e-4     # survivors' R vs float64 truth, relative to max|R| (tests/test_tsqr.py)
 ORTHO_TOL = 2e-5
-# H100 SXM data-sheet peaks (on-chip-measurement guide): HBM3 bytes/s and
+# H100 SXM data-sheet peaks: HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
