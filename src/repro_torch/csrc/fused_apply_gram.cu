@@ -5,10 +5,10 @@
 // fused_apply_gram (_fused_kernel) and its Pallas-Triton lowering in
 // src/repro/kernels/gpu.py:fused_apply_gram.
 //
-// What bounds it on an H100: f32 FMAs.  It does 2 m n k operations for the
-// apply and 2 m k^2 for the Gram against 4 m n bytes of A: 128 flop/byte at
-// n = k = 128, far above the card's ~20 flop/byte balance without tensor
-// cores.  f32 stays f32 (no TF32): CholeskyQR squares kappa(A).
+// What bounds it on an H100: f32 FMAs.  It needs 2 m n k operations for the
+// apply and m k (k + 1) for the symmetric Gram against 4 m n bytes of A:
+// 96 flop/byte at n = k = 128, far above the card's ~20 flop/byte balance
+// without tensor cores.  f32 stays f32 (no TF32): CholeskyQR squares kappa(A).
 //
 // Design.  The grid is the same as gram.cu's: upper-triangle (I, J) tiles of
 // G' (grid.x) by row splits (grid.y) by batch (grid.z).  Per 32-row chunk a

@@ -4,10 +4,10 @@
 // its Pallas-Triton lowering in src/repro/kernels/gpu.py:gram.
 //
 // What bounds it on an H100: at the main path's widths it is f32-FMA bound
-// from n = 128 up (2 m n^2 operations against 4 m n bytes: 64 flop/byte at
-// n = 128, against the card's ~20 flop/byte balance without tensor cores)
-// and memory bound at n = 32 (16 flop/byte).  TF32 tensor cores are not
-// used: CholeskyQR squares kappa(A), so f32 stays f32.
+// from n = 128 up (G is symmetric, so m n (n + 1) operations against 4 m n
+// bytes: 32 flop/byte at n = 128, against the card's ~20 flop/byte balance
+// without tensor cores) and memory bound at n = 32 (8 flop/byte).  TF32
+// tensor cores are not used: CholeskyQR squares kappa(A), so f32 stays f32.
 //
 // Design.  The TPU kernel accumulates into one output block that a
 // sequential grid revisits; on Hopper's parallel grid that is a race.  Here

@@ -13,7 +13,8 @@ Local QR choices (the reference's keys):
   * ``"jnp"`` — Householder QR (``torch.linalg.qr``), runs no kernel;
   * ``"cqr2"`` — CholeskyQR2 R-only on the plain PyTorch versions;
   * ``"cqr2_pallas"`` — CholeskyQR2 R-only on the Hopper kernels (``gram``
-    then ``fused_apply_gram(want_q=False)``).
+    then ``fused_apply_gram(want_q=False)``); Q's polish Gram runs on the
+    ``gram`` kernel too.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.collective.comm import Comm
 from repro_torch.collective.engine import execute_plan, ft_allreduce
 from repro_torch.collective.plan import Plan
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.gram import gram
 from repro_torch.kernels.ops import _chol_upper
 
@@ -68,21 +70,23 @@ def _solve_r(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return y.mT.contiguous()
 
 
-def form_q(a_blocks, r, comm: Comm, reorth: int = 1):
+def form_q(a_blocks, r, comm: Comm, reorth: int = 1, *, use_pallas: bool = False):
     """Q = A·R⁻¹ locally (every survivor holds the same final R), followed by
     ``reorth`` CholeskyQR-style passes whose Gram reduction rides the
     fault-tolerant butterfly (``gram_sum`` combiner).
 
-    The local Gram QᵀQ of each pass goes through the ``gram`` kernel on a
-    CUDA tensor: its row split keeps the f32 sums short, where one cuBLAS
-    product over 2^17 rows per rank left ‖QᵀQ − I‖ at 2.4e-5 on an H100.
+    The local Gram QᵀQ of each pass is the plain product, as in the
+    reference, or with ``use_pallas`` the ``gram`` kernel: its row split
+    keeps the f32 sums short, where one cuBLAS product over 2^17 rows per
+    rank left ‖QᵀQ − I‖ at 2.4e-5 on an H100.
 
     Returns ``(q, r)`` with ``r`` updated so ``Q = A·r⁻¹`` still holds after
     the polish passes.  Requires every rank to hold a correct ``r``.
     """
+    local_gram = gram if use_pallas else kref.gram
     q = _solve_r(a_blocks, r)
     for _ in range(reorth):
-        g_sum, _ = ft_allreduce(gram(q), comm, op="gram_sum")
+        g_sum, _ = ft_allreduce(local_gram(q), comm, op="gram_sum")
         r2 = chol_r(g_sum)
         q = _solve_r(q, r2)
         r = posdiag(r2 @ r)
@@ -108,4 +112,7 @@ class PanelFactorizer:
         return execute_plan(a_panel, comm, plan, self.combiner(), fast=fast)
 
     def form_q(self, a_panel, r, comm: Comm):
-        return form_q(a_panel, r, comm, self.reorth)
+        """Q and its R; the polish Gram runs on the ``gram`` kernel exactly
+        when the local QR does (``local_qr="cqr2_pallas"``)."""
+        return form_q(a_panel, r, comm, self.reorth,
+                      use_pallas=self.local_qr == "cqr2_pallas")

@@ -2,6 +2,7 @@
 row blocks: every variant × local QR × fault picture, with and without Q,
 the batched route, the quickstart scenario, and the facade's routing and
 validation."""
+import collections
 import dataclasses
 
 import numpy as np
@@ -93,6 +94,37 @@ def test_batched_route_matches_reference(rng, local_r):
     np.testing.assert_allclose(got.q.numpy(), np.asarray(want.q), **TOL)
     single = factorize(b[1], QRConfig(local_r=local_r), device="cpu")
     np.testing.assert_allclose(got.r.numpy()[1], single.r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("local_r,want", [
+    ("jnp", {}),
+    ("cqr2", {}),
+    ("cqr2_pallas", {"gram": 2, "fused_apply_gram": 1}),
+])
+def test_only_the_kernel_route_reaches_the_kernels(monkeypatch, rng, local_r, want):
+    """With ``compute_q``, only ``local_r="cqr2_pallas"`` calls a kernel
+    wrapper (its local QR, then Q's polish Gram); the other routes run the
+    plain products, as the reference does, and so need no kernel on a card."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.qr import panel
+
+    calls = collections.Counter()
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for mod, attr, name in [(panel, "gram", "gram"), (kops, "_gram_kernel", "gram"),
+                            (kops, "_fused_kernel", "fused_apply_gram"),
+                            (kops, "_apply_kernel", "apply_right")]:
+        monkeypatch.setattr(mod, attr, spy(name, getattr(mod, attr)))
+    got = factorize(ref.random_tall_skinny(rng, 4, 16, 5),
+                    QRConfig(local_r=local_r, compute_q=True), device="cpu")
+    assert dict(calls) == want
+    q = got.q.numpy().reshape(-1, 5).astype(np.float64)
+    assert np.abs(q.T @ q - np.eye(5)).max() < 2e-5
 
 
 BAD_CONFIGS = [
