@@ -1,35 +1,56 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its main path on one GPU.
+"""Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py
 
-The main path is the paper's workload: a tall-skinny matrix row-distributed
-over P = 8 ranks, factored by fault-tolerant TSQR whose local QR is
-CholeskyQR2 on the hand-written Hopper kernels (``local_r="cqr2_pallas"``).
-All eight ranks live on the one card with a leading (P,) axis, so each
-CholeskyQR2 sweep is one kernel launch for every rank.
+Two main paths, each driven with the launch counts set to 0 just before it
+and read just after:
+
+* **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
+  P = 8 ranks, factored by fault-tolerant TSQR whose local QR is CholeskyQR2
+  on the hand-written kernels ``gram`` and ``fused_apply_gram``
+  (``local_r="cqr2_pallas"``); ``apply_right`` forms the explicit Q of the
+  kernel layer's ``ops.cholesky_qr2``.
+* **Blocked QR** of a general matrix (``QRConfig(panel_width=128,
+  use_pallas=True)``) at 8 × 2^17 × 512 and 8 × 2^17 × 480: the prime
+  (``panel_cross``, or ``pad_cross`` when the pipeline pads the width) and
+  one ``trailing_update`` sweep per later panel, with Q's polish Gram on
+  ``gram``.
+
+All P ranks live on the one card with a leading (P,) axis, so each sweep is
+one kernel launch for every rank.
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. build the kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+1. build the kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a, one
+   process per source, in parallel);
 2. print the card's name and power limit;
 3. hold each kernel against its plain PyTorch version on the card (f32 and
-   bf16, ragged rows, a P = 8 batch, widths 32/128/256, k != n), check the
-   bitwise contracts (fused ≡ gram(apply_right), want_q=False ≡ True,
-   R-only ≡ full-Q R) and that two runs give the same bits;
-4. drive ``factorize`` at 2^20 x 32 (all four variants, fault-free and with
-   rank 5 dying at exchange 1), at 2^22 x 128 (redundant, selfhealing), with
-   ``compute_q`` at 2^20 x 32, and the explicit-Q CholeskyQR2 of the kernel
+   bf16, ragged rows, a P = 8 batch, strided views), check the bitwise
+   contracts (fused ≡ gram(apply_right), want_q=False ≡ True, the
+   lookahead S ≡ panel_cross of the stored A_new, pad_cross's real columns
+   ≡ panel_cross, the same real columns under extra zero columns), that two
+   runs give the same bits, and each f32 kernel against a float64 product;
+4. drive TSQR ``factorize`` at 2^20 x 32 (all four variants, fault-free and
+   with rank 5 dying at exchange 1; ``compute_q`` on the kernel route and,
+   for the plain polish Gram, with ``local_r="cqr2"``), at 2^22 x 128
+   (redundant, selfhealing), and the explicit-Q CholeskyQR2 of the kernel
    layer; check validity against the plan, every survivor's R against a
-   float64 Householder R of the same matrix, the orthogonality of Q, and one
-   launch of each CholeskyQR2 kernel per factorization;
-5. time each kernel (CUDA events, median over repeats) beside its plain
-   version, one PyTorch library call computing the same function, and its
-   bound, and time ``factorize`` end to end.
+   float64 Householder R of the same matrix, the orthogonality of Q, and
+   one launch of each CholeskyQR2 kernel per factorization;
+5. drive the blocked ``factorize`` (redundant and selfhealing; the
+   fixed-shape pipeline, the eager driver, the split schedule, panel-phase
+   and update-phase deaths, ``recover="off"``, ``compute_q``); check
+   validity against the plans, every survivor's R against a float64
+   Householder R, ‖QᵀQ − I‖, pipeline ≡ eager ≡ split schedule bit for bit,
+   and 1 prime + K − 1 trailing sweeps per factorization;
+6. profile one call of each main path, time each kernel (CUDA events,
+   median over repeats) beside its plain version, one PyTorch library call
+   computing the same function where there is one, and its bound, and time
+   ``factorize`` end to end.
 
-The kernel checks' and main path's inputs are drawn on the card from fixed
-seeds.  float32 products run in full float32 (TF32 off).  The last line is
-``{"ok": true, "device": {...}}``.
+The inputs are drawn on the card from fixed seeds.  float32 products run in
+full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -40,9 +61,16 @@ import sys
 import time
 from pathlib import Path
 
+DEVICE = "cuda"
 P = 8
 MAIN_SHAPES = {"paper_fig": (P, (1 << 20) // P, 32), "powersgd_panel": (P, (1 << 22) // P, 128)}
 HEADLINE = "powersgd_panel"
+# The blocked QR: the reference's acceptance shape (general_qr "full",
+# 4096 x 512 at panel width 128) with the rows scaled to the card; the
+# ragged width makes the pipeline's prime pad_cross.
+BLOCKED_SHAPES = {"general_full": (P, 1 << 17, 512), "general_ragged": (P, 1 << 17, 480)}
+PANEL = 128
+BLOCKED_VARIANTS = ("redundant", "selfhealing")
 VARIANTS = ("tree", "redundant", "replace", "selfhealing")
 # tests/test_kernels.py's tolerances; for the kernels held against their
 # plain versions they bound max|got - want| / max|want| (sums of up to 2^19
@@ -57,6 +85,11 @@ R_TOL = 5e-4     # survivors' R vs float64 truth, relative to max|R| (tests/test
 R_TIGHT = 4e-6
 F64_TOL = 1e-5
 ORTHO_TOL = 2e-5
+# The blocked QR's limits: the reference's blocked test bounds ‖QᵀQ − I‖ by
+# 5e-5; the R limit beside R_TOL is about ten times the sound readings
+# (1.5e-7 to 2.2e-7 on an H100).
+R_TIGHT_BLOCKED = 2e-6
+ORTHO_BLOCKED = 5e-5
 # H100 SXM data-sheet peaks: HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -65,12 +98,21 @@ REPLACES = {
     "gram": "src/repro/kernels/gram.py:107",
     "fused_apply_gram": "src/repro/kernels/fused_apply_gram.py:116",
     "apply_right": "src/repro/kernels/apply_right.py:62",
+    "trailing_update": "src/repro/kernels/trailing_update.py:129",
+    "panel_cross": "src/repro/kernels/trailing_update.py:177",
+    "pad_cross": "src/repro/kernels/trailing_update.py:241",
 }
 # The path whose run gives each kernel's ``launches``: factorize (the TSQR
 # main path) runs CholeskyQR2 R-only; Q's sweep 3 is only in the kernel
-# layer's explicit-Q ``ops.cholesky_qr2``.  Each path's counts start at 0.
+# layer's explicit-Q ``ops.cholesky_qr2``; the blocked QR runs the trailing
+# sweeps.  Each path's counts start at 0.
 KERNEL_PATH = {"gram": "factorize", "fused_apply_gram": "factorize",
-               "apply_right": "cholesky_qr2"}
+               "apply_right": "cholesky_qr2", "trailing_update": "blocked",
+               "panel_cross": "blocked", "pad_cross": "blocked"}
+# The shape each kernel's time and error in the ``kernels`` line are taken at.
+KERNEL_SHAPE = {"gram": HEADLINE, "fused_apply_gram": HEADLINE, "apply_right": HEADLINE,
+                "trailing_update": "general_full", "panel_cross": "general_full",
+                "pad_cross": "general_ragged"}
 
 
 class SmokeFailure(AssertionError):
@@ -104,8 +146,11 @@ def main() -> int:
     smoke.build()
     card = smoke.card()
     smoke.kernel_checks()
+    smoke.blocked_kernel_checks()
     smoke.main_path()
+    smoke.blocked_path()
     smoke.timings()
+    smoke.blocked_timings()
     log(json.dumps({"kernels": smoke.kernel_rows()}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -121,22 +166,25 @@ class Smoke:
         from repro_torch.kernels.apply_right import apply_right
         from repro_torch.kernels.fused_apply_gram import fused_apply_gram
         from repro_torch.kernels.gram import gram
+        from repro_torch.kernels.trailing_update import pad_cross, panel_cross, trailing_update
 
         self.torch = torch
         self.build_mod, self.dispatch, self.ops, self.ref = _build, dispatch, ops, ref
         self.kernels = {"gram": gram, "fused_apply_gram": fused_apply_gram,
-                        "apply_right": apply_right}
-        self.gen = torch.Generator(device="cuda")
+                        "apply_right": apply_right, "trailing_update": trailing_update,
+                        "panel_cross": panel_cross, "pad_cross": pad_cross}
+        self.gen = torch.Generator(device=DEVICE)
         self.errors: dict[str, float] = {}
         self.launches: dict[str, dict[str, int]] = {}  # path -> kernel -> count
         self.times: dict[tuple[str, str], dict] = {}
+        self.e2e: dict[tuple[str, str], float] = {}
 
     # -- helpers --------------------------------------------------------------
 
     def randn(self, shape, seed, dtype=None):
         torch = self.torch
         self.gen.manual_seed(seed)
-        x = torch.randn(shape, generator=self.gen, device="cuda")
+        x = torch.randn(shape, generator=self.gen, device=DEVICE)
         return x if dtype is None else x.to(dtype)
 
     def time_ms(self, fn, repeats: int = 7, inner: int = 5) -> float:
@@ -234,7 +282,7 @@ class Smoke:
                         (*shape, shape[-1]) for shape in MAIN_SHAPES.values()}:
                     self.float64_errors(a, w, g, q, gf)
                 if dtype == torch.float32 and (b, m, n) == MAIN_SHAPES[HEADLINE]:
-                    self.errors = {name: self._abs_err(name, a, w) for name in errs}
+                    self.errors.update({name: self._abs_err(name, a, w) for name in errs})
 
     def float64_errors(self, a, w, g, q, gf) -> None:
         """Kernel and plain version, each against a float64 product: which
@@ -262,6 +310,120 @@ class Smoke:
             return (kern(a, w) - ref.apply_right(a, w)).abs().max().item()
         return (kern(a, w, want_q=False) - ref.fused_apply_gram(a, w)[1]).abs().max().item()
 
+    # -- phase 3b: the blocked QR's kernels against their plain versions ------
+
+    def blocked_kernel_checks(self) -> None:
+        """trailing_update, panel_cross and pad_cross on strided views of a
+        wider matrix: against their plain versions, the bitwise contracts
+        between them, width invariance, reruns, and the ``out=`` buffer."""
+        torch, ref = self.torch, self.ref
+        tu, pc, pad = (self.kernels[k] for k in ("trailing_update", "panel_cross", "pad_cross"))
+        extra = 40
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            for seed, (m, b, nt) in enumerate([(4099, 32, 96), (777, 32, 384), (4099, 128, 96),
+                                               (777, 128, 384), (100, 7, 17)]):
+                wide = self.randn((P, m, b + nt + extra), 200 + seed, dtype)
+                wide[..., b + nt:] = 0
+                a, a_ext = wide[..., b:b + nt], wide[..., b:]        # strided rows
+                q = self.randn((P, m, b), 300 + seed, dtype)
+                w = (self.randn((P, b, nt), 400 + seed) / b ** 0.5).to(dtype)
+                w_ext = torch.cat([w, w.new_zeros(w.shape[:-1] + (extra,))], dim=-1)
+                split = min(b, nt)
+                s1 = pc(a, split=split)
+                a_pad, s_pad = pad(a, split=split, out_width=nt + extra)
+                want_pad = ref.pad_cross(a, split=split, out_width=nt + extra)
+                errs = {"panel_cross": self.rel_err(s1, ref.panel_cross(a, split=split)),
+                        "pad_cross": max(self.rel_err(a_pad, want_pad[0]),
+                                         self.rel_err(s_pad, want_pad[1]))}
+                bitwise = {
+                    "pad_cross S real columns == panel_cross": torch.equal(s_pad[..., :nt], s1),
+                    "pad_cross pad columns zero": not s_pad[..., nt:].any()
+                    and not a_pad[..., nt:].any(),
+                    "pad_cross copy exact": torch.equal(a_pad[..., :nt], a),
+                    "panel_cross width-invariant": torch.equal(pc(a_ext, split=split)[..., :nt],
+                                                               s1),
+                    "panel_cross rerun": torch.equal(pc(a, split=split), s1),
+                    "pad_cross rerun": torch.equal(pad(a, split=split, out_width=nt + extra)[1],
+                                                   s_pad),
+                }
+                for nw in (0, split):
+                    got = tu(a, q, w, next_width=nw)
+                    want = ref.trailing_update(a, q, w, next_width=nw)
+                    wide_got = tu(a_ext, q, w_ext, next_width=nw)
+                    buf = torch.zeros((P, m, nt + 8), dtype=dtype, device=DEVICE)
+                    into = tu(a, q, w, next_width=nw, out=buf[..., :nt])
+                    if nw:
+                        a_new, s_new = got
+                        errs[f"trailing_update nw={nw}"] = max(self.rel_err(a_new, want[0]),
+                                                              self.rel_err(s_new, want[1]))
+                        bitwise["S == panel_cross(stored A_new)"] = torch.equal(
+                            s_new, pc(a_new, split=nw))
+                        bitwise["S width-invariant"] = torch.equal(wide_got[1][..., :nt], s_new)
+                        bitwise["out= S"] = torch.equal(into[1], s_new)
+                        wide_got, got = wide_got[0], a_new
+                    else:
+                        errs["trailing_update nw=0"] = self.rel_err(got, want)
+                    bitwise[f"A_new width-invariant nw={nw}"] = torch.equal(
+                        wide_got[..., :nt], got) and not wide_got[..., nt:].any()
+                    bitwise[f"out= A_new nw={nw}"] = torch.equal(buf[..., :nt], got) \
+                        and not buf[..., nt:].any()
+                    rerun = tu(a, q, w, next_width=nw)
+                    bitwise[f"trailing_update rerun nw={nw}"] = torch.equal(
+                        rerun[0] if nw else rerun, got)
+                torch.cuda.synchronize()
+                tag = f"{dname} (P={P}, m={m}, b={b}, n_t={nt})"
+                log(f"[blocked kernels] {tag} rel err "
+                    + " ".join(f"{k_}={v:.2e}" for k_, v in errs.items())
+                    + f" bitwise {all(bitwise.values())}")
+                for name, err in errs.items():
+                    check(err <= TOL[dname], f"{name} {tag}: rel err {err:.3e} > {TOL[dname]}")
+                for what, ok in bitwise.items():
+                    check(ok, f"{what} fails at {tag}")
+        self.blocked_float64()
+
+    def blocked_float64(self) -> None:
+        """At the main path's shapes (f32): each kernel and its plain version
+        against a float64 product, and max |kernel − plain| for the
+        ``kernels`` line."""
+        torch, ref = self.torch, self.ref
+        tu, pc, pad = (self.kernels[k] for k in ("trailing_update", "panel_cross", "pad_cross"))
+        b = PANEL
+        full = self.randn(BLOCKED_SHAPES["general_full"], 500)
+        ragged = self.randn(BLOCKED_SHAPES["general_ragged"], 501)
+        a = full[..., b:]
+        q = self.randn(full.shape[:-1] + (b,), 502) / full.shape[-2] ** 0.5
+        w = self.randn((P, b, a.shape[-1]), 503) / b ** 0.5
+        a_new, s_new = tu(a, q, w, next_width=b)
+        p_new, p_s = ref.trailing_update(a, q, w, next_width=b)
+        s1, s1_plain = pc(full, split=b), ref.panel_cross(full, split=b)
+        _, s2 = pad(ragged, split=b, out_width=full.shape[-1])
+        s2_plain = ref.pad_cross(ragged, split=b, out_width=full.shape[-1])[1]
+        self.errors.update({
+            "trailing_update": max((a_new - p_new).abs().max().item(),
+                                   (s_new - p_s).abs().max().item()),
+            "panel_cross": (s1 - s1_plain).abs().max().item(),
+            "pad_cross": (s2 - s2_plain).abs().max().item(),
+        })
+        nr = ragged.shape[-1]
+        f64 = {"trailing_update A_new": (a.double() - q.double() @ w.double(), a_new, p_new)}
+        an64 = a_new.double()
+        f64["trailing_update S"] = (an64[..., :b].mT @ an64, s_new, ref.panel_cross(a_new, split=b))
+        del an64
+        f64["panel_cross"] = (full.double()[..., :b].mT @ full.double(), s1, s1_plain)
+        r64 = ragged.double()
+        f64["pad_cross"] = (r64[..., :b].mT @ r64, s2[..., :nr], s2_plain[..., :nr])
+        del r64
+        errs = {k: (self.rel_err(g.double(), t), self.rel_err(pl.double(), t))
+                for k, (t, g, pl) in f64.items()}
+        log("[blocked kernels] vs float64 at the main path's shapes: " + "; ".join(
+            f"{k} kernel {e:.2e} plain {pe:.2e}" for k, (e, pe) in errs.items()))
+        log(f"[blocked kernels] max |kernel − plain| on those inputs: "
+            + json.dumps({k: self.errors[k] for k in ("trailing_update", "panel_cross",
+                                                      "pad_cross")}))
+        for k, (e, _) in errs.items():
+            check(e <= F64_TOL, f"{k}: {e:.3e} from float64 > {F64_TOL}")
+
     # -- phase 4: the main path -----------------------------------------------
 
     def main_path(self) -> None:
@@ -271,11 +433,15 @@ class Smoke:
 
         counts = self.dispatch.launches
         fault = FaultSpec.of({5: 1})
-        runs = [(name, v, f, False) for name in ("paper_fig",) for v in VARIANTS
+        kern = "cqr2_pallas"
+        runs = [(name, v, f, False, kern) for name in ("paper_fig",) for v in VARIANTS
                 for f in (None, fault)]
-        runs += [(HEADLINE, v, f, False) for v in ("redundant", "selfhealing")
+        runs += [(HEADLINE, v, f, False, kern) for v in ("redundant", "selfhealing")
                  for f in (None, fault)]
-        runs += [("paper_fig", "redundant", None, True)]
+        # compute_q on the kernel route, and on the plain route, whose polish
+        # Gram is the chunked product of qr/panel.py (ROADMAP C4)
+        runs += [("paper_fig", "redundant", None, True, kern),
+                 ("paper_fig", "redundant", None, True, "cqr2")]
         data = {name: self.randn(shape, 1000 + i) for i, (name, shape) in
                 enumerate(MAIN_SHAPES.items())}
         truth = {}
@@ -285,17 +451,20 @@ class Smoke:
         torch.cuda.synchronize()
 
         counts.reset()
-        for name, variant, faults, want_q in runs:
+        for name, variant, faults, want_q, local_r in runs:
             before = counts.as_dict()
-            res = factorize(data[name], QRConfig(variant=variant, local_r="cqr2_pallas",
+            res = factorize(data[name], QRConfig(variant=variant, local_r=local_r,
                                                  compute_q=want_q), faults=faults)
             torch.cuda.synchronize()
             delta = {k: v - before[k] for k, v in counts.as_dict().items()}
             deaths = faults.deaths if faults else ()
-            tag = f"{name} {tuple(data[name].shape)} {variant} faults={deaths}"
+            tag = f"{name} {tuple(data[name].shape)} {variant} {local_r} faults={deaths}"
             # one launch of each for all P ranks; with compute_q the
-            # reorthogonalization pass adds one gram launch
-            want = {"gram": 1 + want_q, "fused_apply_gram": 1, "apply_right": 0}
+            # reorthogonalization pass adds one gram launch; the plain
+            # route launches nothing
+            want = dict.fromkeys(counts.as_dict(), 0)
+            if local_r == kern:
+                want.update(gram=1 + want_q, fused_apply_gram=1)
             check(delta == want, f"{tag}: launches {delta}, want {want}")
             valid = res.valid.cpu().numpy()
             check((valid == res.plan.final_valid).all(),
@@ -309,7 +478,7 @@ class Smoke:
             if want_q:
                 q = res.q.double()
                 ortho = (torch.einsum("pmi,pmj->ij", q, q)
-                         - torch.eye(q.shape[-1], dtype=torch.float64, device="cuda")
+                         - torch.eye(q.shape[-1], dtype=torch.float64, device=DEVICE)
                          ).abs().max().item()
                 check(ortho <= ORTHO_TOL, f"{tag}: ||QᵀQ − I|| {ortho:.3e} > {ORTHO_TOL}")
                 line += f" ||QᵀQ−I||={ortho:.2e}"
@@ -327,28 +496,26 @@ class Smoke:
             q, r = self.ops.cholesky_qr2(a, use_pallas=True)
             r_only = self.ops.cholesky_qr2_r(a, use_pallas=True)
             torch.cuda.synchronize()
-            delta = {k: v - before[k] for k, v in counts.as_dict().items()}
+            delta = {k: v - before[k] for k, v in counts.as_dict().items() if v - before[k]}
             check(delta == {"gram": 2, "fused_apply_gram": 2, "apply_right": 1},
                   f"cholesky_qr2 {name}: launches {delta}")
             check(torch.equal(r, r_only), f"cholesky_qr2 {name}: R-only != full-Q R")
             q64 = q.double()
             ortho = (q64.mT @ q64 - torch.eye(q.shape[-1], dtype=torch.float64,
-                                              device="cuda")).abs().max().item()
+                                              device=DEVICE)).abs().max().item()
             check(ortho <= 3e-5, f"cholesky_qr2 {name}: per-rank ||QᵀQ − I|| {ortho:.3e}")
             log(f"[main] cholesky_qr2 {name} {tuple(a.shape)} R-only == full-Q R, "
                 f"per-rank ||QᵀQ−I||={ortho:.2e} launches {delta}")
         self.launches["cholesky_qr2"] = counts.as_dict()
         log(f"[main] launches over {len(data)} explicit-Q cholesky_qr2 calls: "
             f"{self.launches['cholesky_qr2']}")
-        for kernel, path in KERNEL_PATH.items():
-            check(self.launches[path][kernel] > 0, f"{kernel} was never launched on its "
-                  f"path ({path})")
-
-        self.profile(data, QRConfig, factorize)
+        cfg = QRConfig(variant="redundant", local_r=kern)
+        for name, a in data.items():
+            self.profile(f"TSQR {name} {tuple(a.shape)}", lambda a=a: factorize(a, cfg))
 
         # end-to-end factorize times
-        for name, variant, faults, want_q in runs:
-            cfg = QRConfig(variant=variant, local_r="cqr2_pallas", compute_q=want_q)
+        for name, variant, faults, want_q, local_r in runs:
+            cfg = QRConfig(variant=variant, local_r=local_r, compute_q=want_q)
             samples = []
             for i in range(6):
                 torch.cuda.synchronize()
@@ -358,40 +525,159 @@ class Smoke:
                 if i:
                     samples.append((time.perf_counter() - t0) * 1e3)
             log(f"[e2e] factorize {name} {tuple(data[name].shape)} {variant} "
-                f"faults={faults.deaths if faults else ()} compute_q={want_q}: "
+                f"{local_r} faults={faults.deaths if faults else ()} compute_q={want_q}: "
                 f"median {statistics.median(samples):.3f} ms "
                 f"(min {min(samples):.3f}, max {max(samples):.3f}, 5 runs)")
 
-    def profile(self, data, qr_config, factorize) -> None:
-        """Where one fault-free redundant factorization spends device time:
-        ``torch.profiler`` over one warm call per main-path shape, the
-        device-time sums by kernel, and the device's busy share of the
-        wall time (kernel self time summed over the call's wall clock; the
-        call runs alone on the card, so kernels do not overlap)."""
+    # -- phase 5: the blocked QR ----------------------------------------------
+
+    def truth_r(self, a):
+        """Sign-normalized float64 Householder R of the global matrix."""
+        torch = self.torch
+        r64 = torch.linalg.qr(a.reshape(-1, a.shape[-1]).double(), mode="r")[1]
+        return r64 * torch.where(r64.diagonal() < 0, -1.0, 1.0).double()[:, None]
+
+    def blocked_path(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.qr import PanelFaultSchedule, QRConfig, factorize
+
+        counts = self.dispatch.launches
+        data = {name: self.randn(shape, 3000 + i)
+                for i, (name, shape) in enumerate(BLOCKED_SHAPES.items())}
+        truth = {name: self.truth_r(a) for name, a in data.items()}
+        death = {"panel {1: {5: 1}}": PanelFaultSchedule.of(panel={1: {5: 1}}),
+                 "update {0: {3: 0}}": PanelFaultSchedule.of(update={0: {3: 0}}),
+                 "update {0: {5: 1}}": PanelFaultSchedule.of(update={0: {5: 1}})}
+        runs = []     # (shape, variant, config fields, fault name, equal to run)
+        for v in BLOCKED_VARIANTS:
+            runs += [("general_full", v, {}, None, None),
+                     ("general_full", v, {"pipeline": "off"}, None, ("general_full", v)),
+                     ("general_full", v, {"fuse": "off"}, None, ("general_full", v)),
+                     ("general_ragged", v, {}, None, None),
+                     ("general_ragged", v, {"pipeline": "off"}, None, ("general_ragged", v))]
+            runs += [("general_full", v, {"fuse": fuse}, f, None)
+                     for f in death for fuse in ("auto", "off")]
+        runs += [("general_full", "redundant", {"recover": "off"}, "panel {1: {5: 1}}", None),
+                 ("general_full", "redundant", {"compute_q": True}, None, None)]
+        torch.cuda.synchronize()
+
+        base = {}
+        counts.reset()
+        for name, variant, fields, fault, same_as in runs:
+            a = data[name]
+            faults = death[fault] if fault else None
+            before = counts.as_dict()
+            res = factorize(a, QRConfig(panel_width=PANEL, use_pallas=True, variant=variant,
+                                        **fields), faults=faults)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in counts.as_dict().items()}
+            tag = f"{name} {tuple(a.shape)} {variant} {fields} faults={fault}"
+            k_panels = res.n_panels
+            eager = faults is not None or fields.get("pipeline") == "off"
+            prime = "pad_cross" if not eager and a.shape[-1] < k_panels * PANEL else "panel_cross"
+            want = dict.fromkeys(counts.as_dict(), 0)
+            want.update({prime: 1, "trailing_update": k_panels - 1, "gram": sum(
+                1 for rep in res.reports if rep.plan_r.final_valid.all() or rep.recovered_r)})
+            check(delta == want, f"{tag}: launches {delta}, want {want}")
+            expect = np.ones(P, bool)
+            for rep in res.reports:
+                expect &= rep.plan_r.final_valid
+                if not rep.fused and rep.plan_w is not None:
+                    expect &= rep.plan_w.final_valid
+            valid = res.valid.cpu().numpy()
+            check((valid == expect).all(), f"{tag}: validity {valid} != plans {expect}")
+            # recover="off" leaves the faulted panel exact on survivors and
+            # rots the later ones
+            rows = 2 * PANEL if fields.get("recover") == "off" else a.shape[-1]
+            t = truth[name][:rows]
+            errs = [((res.r[i, :rows].double() - t).abs().max() / t.abs().max()).item()
+                    for i in valid.nonzero()[0].tolist()]
+            line = f"[blocked] {tag} valid={valid.astype(int).tolist()}"
+            if errs:
+                err = max(errs)
+                check(err <= R_TIGHT_BLOCKED, f"{tag}: survivor R rel err "
+                      f"{err:.3e} > {R_TIGHT_BLOCKED} (suite limit {R_TOL})")
+                line += f" R rel err {err:.2e}"
+            else:
+                check(bool(torch.isnan(res.r).flatten(1).any(1).all()),
+                      f"{tag}: no survivor, yet some rank's R is not poisoned")
+                line += " no survivor, every R NaN-poisoned"
+            if rows < a.shape[-1]:
+                check(bool(torch.isnan(res.r[:, rows:]).any()), f"{tag}: later panels not poisoned")
+                line += f", rows >= {rows} poisoned"
+            if fields.get("compute_q"):
+                q = res.q.double()
+                ortho = (torch.einsum("pmi,pmj->ij", q, q)
+                         - torch.eye(q.shape[-1], dtype=torch.float64, device=DEVICE)
+                         ).abs().max().item()
+                del q
+                check(ortho <= ORTHO_BLOCKED,
+                      f"{tag}: ||QᵀQ − I|| {ortho:.3e} > {ORTHO_BLOCKED}")
+                line += f" ||QᵀQ−I||={ortho:.2e}"
+            if same_as is not None:
+                other = base[same_as]
+                check(torch.equal(res.r, other.r) and torch.equal(res.valid, other.valid),
+                      f"{tag}: R differs from {same_as}'s pipeline run")
+                line += f" == {same_as[0]} pipeline run bit for bit"
+            elif not fields and faults is None:
+                base[(name, variant)] = res
+            log(line + f" launches {({k: v for k, v in delta.items() if v})}")
+        self.launches["blocked"] = counts.as_dict()
+        log(f"[blocked] launches over {len(runs)} factorizations: {self.launches['blocked']}")
+        for kernel, path in KERNEL_PATH.items():
+            check(self.launches[path][kernel] > 0, f"{kernel} was never launched on its "
+                  f"path ({path})")
+
+        for name, a in data.items():
+            for pipeline in ("auto", "off"):
+                cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline=pipeline)
+                self.profile(f"blocked {name} {tuple(a.shape)} pipeline={pipeline}",
+                             lambda a=a, cfg=cfg: factorize(a, cfg))
+        for name, a in data.items():
+            for pipeline in ("auto", "off"):
+                cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline=pipeline)
+                samples = []
+                for i in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    factorize(a, cfg)
+                    torch.cuda.synchronize()
+                    if i:
+                        samples.append((time.perf_counter() - t0) * 1e3)
+                self.e2e[(name, pipeline)] = statistics.median(samples)
+                log(f"[e2e] blocked factorize {name} {tuple(a.shape)} redundant "
+                    f"pipeline={pipeline}: median {statistics.median(samples):.3f} ms "
+                    f"(min {min(samples):.3f}, max {max(samples):.3f}, 5 runs)")
+
+    def profile(self, label: str, fn) -> None:
+        """Where one warm call spends device time: ``torch.profiler`` over
+        the call, the device-time sums by kernel, and the device's busy
+        share of the wall time (kernel self time summed over the call's wall
+        clock; the call runs alone on the card, so kernels do not overlap)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
-        cfg = qr_config(variant="redundant", local_r="cqr2_pallas")
-        for name, a in data.items():
-            factorize(a, cfg)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                factorize(a, cfg)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            # device activities only: an aten:: operator's device time repeats
-            # the time of the kernels it launched
-            rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                    if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
-            busy_us = sum(t for _, t, _ in rows)
-            if not rows:
-                log(f"[profile] {name}: the profiler recorded no device time (not measured)")
-                continue
-            log(f"[profile] {name} {tuple(a.shape)}: wall {wall_us:.0f} us, device busy "
-                f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%)")
-            for key, t, count in sorted(rows, key=lambda r: -r[1])[:8]:
-                log(f"[profile]   {t:10.0f} us  x{count:<4d} {key[:90]}")
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device activities only: an aten:: operator's device time repeats
+        # the time of the kernels it launched
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+        busy_us = sum(t for _, t, _ in rows)
+        if not rows:
+            log(f"[profile] {label}: the profiler recorded no device time (not measured)")
+            return
+        log(f"[profile] {label}: wall {wall_us:.0f} us, device busy "
+            f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%)")
+        for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
+            log(f"[profile]   {t:10.0f} us  x{count:<4d} {key[:90]}")
 
     # -- phase 5: kernel times ------------------------------------------------
 
@@ -437,10 +723,80 @@ class Smoke:
                 self.times[(name, shape_name)] = row
                 log(f"[time] {name} {shape_name} {json.dumps(row)}")
 
+    def time_row(self, shape, nbytes: int, flops: int, kern, plain, lib) -> dict:
+        """Kernel, plain version and library call times beside the bound:
+        the larger of the bytes over the memory rate and the operations over
+        the f32 rate."""
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        return {
+            "shape": list(shape),
+            "ms": self.time_ms(kern),
+            "plain_ms": self.time_ms(plain),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": self.time_ms(lib) if lib else None,
+        }
+
+    def blocked_timings(self) -> None:
+        """The blocked QR's kernels at the main path's shapes.  Operations:
+        m·s(s+1) for the symmetric s × s block of a cross product S of split
+        s, 2ms(n − s) for the rest of S, 2mb·n_t for the update."""
+        torch, ref = self.torch, self.ref
+        tu, pc, pad = (self.kernels[k] for k in ("trailing_update", "panel_cross", "pad_cross"))
+        b, f32 = PANEL, 4
+        full = self.randn(BLOCKED_SHAPES["general_full"], 4000)
+        ragged = self.randn(BLOCKED_SHAPES["general_ragged"], 4001)
+        bsz, m, n = full.shape
+        q = self.randn((bsz, m, b), 4002) / m ** 0.5
+
+        def cross_ops(split, width):
+            return bsz * (m * split * (split + 1) + 2 * m * split * (width - split))
+
+        # the trailing widths of general_full's sweeps (384, 256, 128), and
+        # the first without the lookahead
+        widths = [n - k * b for k in range(1, n // b)]
+        for nt, nw in [(nt, b) for nt in widths] + [(widths[0], 0)]:
+            a = full[..., n - nt:]                           # the strided trailing block
+            w = self.randn((bsz, b, nt), 4003 + nt) / b ** 0.5
+            lib = None
+            if not nw:
+                # one library call for the update alone: A − Q W
+                lib = lambda a=a, w=w: torch.baddbmm(a, q, w, alpha=-1)  # noqa: E731
+                lib_err = self.rel_err(lib(), ref.trailing_update(a, q, w))
+                check(lib_err <= TOL["float32"], f"baddbmm yardstick: {lib_err:.3e}")
+            key = f"general_full n_t={nt}" + ("" if nw else " next_width=0")
+            self.times[("trailing_update", key)] = self.time_row(
+                (bsz, m, b, nt, nw),
+                f32 * bsz * (2 * m * nt + m * b + b * nt + nw * nt),
+                bsz * 2 * m * b * nt + (cross_ops(nw, nt) if nw else 0),
+                lambda a=a, w=w, nw=nw: tu(a, q, w, next_width=nw),
+                lambda a=a, w=w, nw=nw: ref.trailing_update(a, q, w, next_width=nw), lib)
+        self.times[("trailing_update", "general_full")] = self.times[
+            ("trailing_update", f"general_full n_t={widths[0]}")]
+        self.times[("panel_cross", "general_full")] = self.time_row(
+            (bsz, m, n, b), f32 * bsz * (m * n + b * n), cross_ops(b, n),
+            lambda: pc(full, split=b), lambda: ref.panel_cross(full, split=b),
+            lambda: full[..., :b].mT @ full)
+        nr = ragged.shape[-1]
+        # no single library call widens A and forms S in one sweep
+        self.times[("pad_cross", "general_ragged")] = self.time_row(
+            (bsz, m, nr, b, n), f32 * bsz * (m * nr + m * n + b * n), cross_ops(b, nr),
+            lambda: pad(ragged, split=b, out_width=n),
+            lambda: ref.pad_cross(ragged, split=b, out_width=n), None)
+        for (name, shape), row in self.times.items():
+            if name in ("trailing_update", "panel_cross", "pad_cross"):
+                log(f"[time] {name} {shape} {json.dumps(row)}")
+        bound = {key: sum(self.times[("trailing_update", f"general_full n_t={nt}")]["bound_ms"]
+                          for nt in nts)
+                 for key, nts in (("pipeline", [widths[0]] * len(widths)), ("eager", widths))}
+        log(f"[time] trailing sweeps' bound per general_full factorization: pipeline (n_t = "
+            f"{widths[0]} every panel) {bound['pipeline']:.3f} ms, eager ({widths}) "
+            f"{bound['eager']:.3f} ms")
+
     def kernel_rows(self) -> list[dict]:
         rows = []
         for name in self.kernels:
-            t = self.times[(name, HEADLINE)]
+            t = self.times[(name, KERNEL_SHAPE[name])]
             rows.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{name}.cu",

@@ -1,0 +1,85 @@
+// Device building blocks shared by the blocked-QR kernels (trailing_update.cu,
+// panel_cross.cu, pad_cross.cu), on top of the CholeskyQR2 tiles.
+//
+// Bitwise contracts the three kernels keep with each other:
+//   * every element of A_new = A - Q.W is A minus one f32 register summed
+//     over l = 0..b-1 in order with __fmaf_rn (cqr2::apply_chunk), so it
+//     does not depend on the trailing width or on which CTA computes it;
+//   * every element of a cross partial S[i][j] = sum_r X[r][i] X[r][j] is
+//     one f32 register summed over the rows of its split in order with
+//     __fmaf_rn (cqr2::gram_accumulate), and the splits are folded in index
+//     order (fold_rect).  The split is a function of (batch, m) only
+//     (_launch.cross_split), so trailing_update's S equals panel_cross of
+//     the stored A_new, pad_cross's real columns equal panel_cross, and a
+//     wider trailing block (extra zero columns) leaves the real columns'
+//     bits unchanged.
+// The tile shapes do not enter the arithmetic order.
+#pragma once
+
+#include "cqr2_tiles.cuh"
+
+namespace cross {
+
+using cqr2::kRows;
+using cqr2::kThreads;
+
+// X[r][c] = src[(r0 + r) * ld + c0 + c], zero outside rows < rows and
+// columns < width.  src's rows may be strided (ld >= width).
+template <typename S, int T>
+__device__ __forceinline__ void load_strided(float (*X)[T], const S* src, int rows, int width,
+                                             long long ld, int r0, int c0) {
+  for (int e = threadIdx.x; e < kRows * T; e += kThreads) {
+    const int r = e / T, c = e % T;
+    const int gr = r0 + r, gc = c0 + c;
+    X[r][c] = (gr < rows && gc < width) ? cqr2::to_f32(src[(long long)gr * ld + gc]) : 0.0f;
+  }
+}
+
+// Write one CTA's accumulator tile (ti, tj) into its split's (rows x cols)
+// partial.
+template <int T>
+__device__ __forceinline__ void store_rect(float* part, int rows, int cols, int ti, int tj,
+                                           const float (&acc)[T / 16][T / 16]) {
+  constexpr int MT = T / 16;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int a = 0; a < MT; ++a) {
+    const int i = ti * T + ty + 16 * a;
+#pragma unroll
+    for (int b = 0; b < MT; ++b) {
+      const int j = tj * T + tx + 16 * b;
+      if (i < rows && j < cols) part[(long long)i * cols + j] = acc[a][b];
+    }
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void zero_acc(float (&acc)[T / 16][T / 16]) {
+#pragma unroll
+  for (int i = 0; i < T / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < T / 16; ++j) acc[i][j] = 0.0f;
+}
+
+// s[b][i][j] = sum over splits in order of part[b][split][i][j].
+__global__ void fold_rect(const float* __restrict__ part, float* __restrict__ s, int batch,
+                          int splits, int rows, int cols) {
+  const long long per = (long long)rows * cols;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= batch * per) return;
+  const long long b = idx / per, rem = idx % per;
+  const float* p = part + b * splits * per + rem;
+  float sum = 0.0f;
+  for (int k = 0; k < splits; ++k) sum = __fadd_rn(sum, p[k * per]);
+  s[idx] = sum;
+}
+
+inline cudaError_t launch_fold_rect(const float* part, float* s, int batch, int splits, int rows,
+                                    int cols, cudaStream_t stream) {
+  const long long total = (long long)batch * rows * cols;
+  const int blocks = (int)((total + kThreads - 1) / kThreads);
+  fold_rect<<<blocks, kThreads, 0, stream>>>(part, s, batch, splits, rows, cols);
+  return cudaGetLastError();
+}
+
+}  // namespace cross

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # C entry point and argtypes of each kernel library (see csrc/<name>.cu).
 KERNELS: dict[str, tuple[str, list]] = {
@@ -40,6 +40,14 @@ KERNELS: dict[str, tuple[str, list]] = {
         "repro_fused_apply_gram", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "apply_right": ("repro_apply_right", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "trailing_update": (
+        "repro_trailing_update",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _P],
+    ),
+    "panel_cross": ("repro_panel_cross", [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P]),
+    "pad_cross": (
+        "repro_pad_cross", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
+    ),
 }
 
 _LOCK = threading.Lock()

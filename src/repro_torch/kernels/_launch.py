@@ -1,5 +1,6 @@
-"""Argument checks, row split and launch plumbing shared by the kernel
-wrappers (``gram``, ``fused_apply_gram``, ``apply_right``)."""
+"""Argument checks, row splits and launch plumbing shared by the kernel
+wrappers (``gram``, ``fused_apply_gram``, ``apply_right``,
+``trailing_update``, ``panel_cross``, ``pad_cross``)."""
 from __future__ import annotations
 
 import math
@@ -8,12 +9,13 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_WIDTH", "check", "launch", "row_split"]
+__all__ = ["MAX_WIDTH", "check", "cross_split", "launch", "row_split", "strided"]
 
 MAX_WIDTH = 512          # widest Gram / product the kernels take (as the reference)
 DTYPES = (torch.float32, torch.bfloat16)
 _ROWS = 32               # rows of one streamed chunk (cqr2::kRows)
 _TARGET_CTAS = 4 * 132   # CTAs one launch aims for: four per H100 SM
+_CROSS_TARGET = 2 * 132  # (batch, split) pairs of one cross launch: two per SM
 
 
 def check(op: str, a: torch.Tensor, w: torch.Tensor | None = None) -> tuple[int, int, int, int]:
@@ -67,6 +69,43 @@ def row_split(batch: int, m: int, width: int) -> tuple[int, int]:
     splits = max(1, min(chunks, -(-_TARGET_CTAS // (batch * pairs))))
     rows_per_split = -(-chunks // splits) * _ROWS
     return rows_per_split, -(-m // rows_per_split)
+
+
+def cross_split(batch: int, m: int) -> tuple[int, int]:
+    """``(rows_per_split, splits)`` of the blocked-QR kernels' row split.
+
+    A pure function of ``(batch, m)``: never of the card, the split width
+    or the trailing width.  So ``trailing_update``'s lookahead S equals
+    ``panel_cross`` of the stored A_new, ``pad_cross``'s real columns equal
+    ``panel_cross``, a ragged last panel's Gram is the same whether the
+    sweep accumulated ``b`` or ``b_last`` rows of S, and the fixed-shape
+    pipeline (padded width) equals the eager driver (live width), all bit
+    for bit.  Every column tile of every split is its own CTA, so the
+    launch has at least ``batch * splits`` CTAs.
+    """
+    chunks = -(-m // _ROWS)
+    splits = max(1, min(chunks, -(-_CROSS_TARGET // batch)))
+    rows_per_split = -(-chunks // splits) * _ROWS
+    return rows_per_split, -(-m // rows_per_split)
+
+
+def strided(op: str, name: str, t: torch.Tensor) -> tuple[int, int]:
+    """``(batch_stride, row_stride)`` of a (…, m, n) operand whose rows may
+    be strided (a column slice of a wider matrix) but whose columns are
+    unit-stride and whose leading dims collapse into one batch stride."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{op}: {name} must have unit column stride")
+    row = t.stride(-2) if t.shape[-2] > 1 else t.shape[-1]
+    if row < t.shape[-1]:
+        raise ValueError(f"{op}: {name} rows overlap (row stride {row} < {t.shape[-1]})")
+    lead = [(size, step) for size, step in zip(t.shape[:-2], t.stride()[:-2]) if size > 1]
+    for (_, outer), (size, inner) in zip(lead, lead[1:]):
+        if outer != inner * size:
+            raise ValueError(f"{op}: {name}'s leading dims must collapse into one batch stride")
+    batch_stride = lead[-1][1] if lead else row * t.shape[-2]
+    if batch_stride < row * (t.shape[-2] - 1) + t.shape[-1]:
+        raise ValueError(f"{op}: {name}'s matrices overlap in memory")
+    return batch_stride, row
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -23,6 +23,9 @@ class LaunchCounts:
     gram: int = 0
     fused_apply_gram: int = 0
     apply_right: int = 0
+    trailing_update: int = 0
+    panel_cross: int = 0
+    pad_cross: int = 0
 
     def reset(self) -> None:
         for field in dataclasses.fields(self):

@@ -1,4 +1,5 @@
-"""Public wrappers over the Hopper kernels, and the CholeskyQR2 pipeline.
+"""Public wrappers over the Hopper kernels, the CholeskyQR2 pipeline and the
+blocked QR's trailing-block sweeps.
 
 ``cholesky_qr2`` is the local QR of the TSQR variants: two rounds of (Gram
 → n×n Cholesky → triangular inverse → panel product).  The pipeline is
@@ -27,6 +28,9 @@ from . import traffic as _traffic
 from .apply_right import apply_right as _apply_kernel
 from .fused_apply_gram import fused_apply_gram as _fused_kernel
 from .gram import gram as _gram_kernel
+from .trailing_update import pad_cross as _pad_cross_kernel
+from .trailing_update import panel_cross as _panel_cross_kernel
+from .trailing_update import trailing_update as _trailing_kernel
 
 __all__ = [
     "gram",
@@ -36,6 +40,9 @@ __all__ = [
     "cholesky_qr2",
     "cholesky_qr2_r",
     "tri_inv",
+    "trailing_update",
+    "panel_cross",
+    "pad_cross",
 ]
 
 
@@ -73,6 +80,65 @@ def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
     q_bytes = _nbytes(out[0]) if want_q else 0
     _traffic.note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
                   write_bytes=q_bytes + _nbytes(g_out))
+    return out
+
+
+# -- raw forms (no traffic notes) ---------------------------------------------
+#
+# The fixed-shape blocked-QR pipeline (repro_torch.qr.blocked) calls these
+# and notes its own per-call totals, as the reference's scan-compiled
+# pipeline does; launches are counted by the kernel wrappers either way.
+
+def _trailing_update_raw(a, q, w, *, next_width: int = 0, use_pallas: bool = False,
+                         out=None):
+    if use_pallas:
+        return _trailing_kernel(a, q, w, next_width=next_width, out=out)
+    res = _ref.trailing_update(a, q, w, next_width=next_width)
+    if out is None:
+        return res
+    out.copy_(res[0] if next_width else res)
+    return (out, res[1]) if next_width else out
+
+
+def _panel_cross_raw(a, *, split: int, use_pallas: bool = False):
+    if use_pallas:
+        return _panel_cross_kernel(a, split=split)
+    return _ref.panel_cross(a, split=split)
+
+
+def _pad_cross_raw(a, *, split: int, out_width: int, use_pallas: bool = False):
+    if use_pallas:
+        return _pad_cross_kernel(a, split=split, out_width=out_width)
+    return _ref.pad_cross(a, split=split, out_width=out_width)
+
+
+def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False):
+    """Blocked-QR trailing update ``A − Q W`` in **one** trailing-block
+    sweep, with the next panel's cross-Gram ``S`` accumulated in the same
+    pass when ``next_width > 0``.  Returns ``a_new`` — or ``(a_new, s)``."""
+    out = _trailing_update_raw(a, q, w, next_width=next_width, use_pallas=use_pallas)
+    a_new = out[0] if next_width else out
+    s_bytes = _nbytes(out[1]) if next_width else 0
+    _traffic.note("trailing_update", sweeps=1,
+                  read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
+                  write_bytes=_nbytes(a_new) + s_bytes)
+    return out
+
+
+def panel_cross(a, *, split: int, use_pallas: bool = False):
+    """Pipeline prime for blocked QR: ``S = A[:, :split]ᵀ A`` in one sweep."""
+    out = _panel_cross_raw(a, split=split, use_pallas=use_pallas)
+    _traffic.note("panel_cross", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    return out
+
+
+def pad_cross(a, *, split: int, out_width: int, use_pallas: bool = False):
+    """Fixed-shape pipeline prime: widen A to the padded trailing width and
+    compute ``S = A[:, :split]ᵀ A`` in the same single sweep.  Returns
+    ``(a_pad, s)``."""
+    out = _pad_cross_raw(a, split=split, out_width=out_width, use_pallas=use_pallas)
+    _traffic.note("pad_cross", sweeps=1, read_bytes=_nbytes(a),
+                  write_bytes=_nbytes(out[0]) + _nbytes(out[1]))
     return out
 
 

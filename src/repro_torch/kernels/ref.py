@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CholeskyQR2 kernels.
+"""Plain PyTorch versions of the CholeskyQR2 and blocked-QR kernels.
 
 The CPU tests run these, a kernel wrapper takes one only for a tensor on the
 CPU, and the card checks compare each kernel against its version here.
@@ -10,7 +10,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gram", "apply_right", "fused_apply_gram", "cholesky_qr", "cholesky_qr2"]
+__all__ = [
+    "gram",
+    "apply_right",
+    "fused_apply_gram",
+    "cholesky_qr",
+    "cholesky_qr2",
+    "trailing_update",
+    "panel_cross",
+    "pad_cross",
+]
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:
@@ -28,6 +37,31 @@ def fused_apply_gram(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, to
     """Q = A @ W and G' = QᵀQ of the *stored* (cast) Q."""
     q = apply_right(a, w)
     return q, gram(q)
+
+
+def panel_cross(a: torch.Tensor, *, split: int) -> torch.Tensor:
+    """S = A[:, :split]ᵀ A accumulated in float32.  a: (..., m, n) → (..., split, n)."""
+    a32 = a.to(torch.float32)
+    return a32[..., :split].mT @ a32
+
+
+def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
+                    next_width: int = 0):
+    """A_new = A − Q W in float32, stored in A's dtype; with ``next_width > 0``
+    also the lookahead S = A_new[:, :next_width]ᵀ A_new of the *stored*
+    (cast) rows.  a: (..., m, n_t), q: (..., m, b), w: (..., b, n_t)."""
+    upd = q.to(torch.float32) @ w.to(torch.float32)
+    a_new = (a.to(torch.float32) - upd).to(a.dtype)
+    if not next_width:
+        return a_new
+    return a_new, panel_cross(a_new, split=next_width)
+
+
+def pad_cross(a: torch.Tensor, *, split: int, out_width: int):
+    """Widen A with zero columns to ``out_width`` and return it with the
+    :func:`panel_cross` of the widened copy."""
+    a_pad = torch.nn.functional.pad(a, (0, out_width - a.shape[-1]))
+    return a_pad, panel_cross(a_pad, split=split)
 
 
 def _posdiag(r: torch.Tensor) -> torch.Tensor:

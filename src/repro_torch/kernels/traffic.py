@@ -1,4 +1,4 @@
-"""Device-memory traffic model for the CQR2 kernel pipeline.
+"""Device-memory and collective traffic records of the kernel pipelines.
 
 Every wrapper in :mod:`repro_torch.kernels.ops` notes, as it is called, the
 bytes it streams from and to device memory and whether the call is a
@@ -6,7 +6,10 @@ bytes it streams from and to device memory and whether the call is a
 inverse work is not).  The records for a call equal the reference's
 (:mod:`repro.kernels.traffic`) for the same shapes: CholeskyQR2's R factor
 takes **2** tall sweeps (``cholesky_qr2_r``), the explicit Q **3**
-(``cholesky_qr2``) and the unfused pipeline 4.
+(``cholesky_qr2``) and the unfused pipeline 4.  The blocked QR adds its
+``panel_cross``/``pad_cross``/``trailing_update`` sweeps and one
+``panel_reduce`` record per butterfly (``reorth_reduce`` for Q's polish)
+with serial rounds and plan-priced wire bytes.
 
 Usage::
 
@@ -22,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-__all__ = ["KernelTraffic", "note", "track_traffic"]
+__all__ = ["KernelTraffic", "note", "suppress", "track_traffic"]
 
 
 @dataclasses.dataclass
@@ -36,6 +39,20 @@ class KernelTraffic:
         """Number of sweeps over a tall (panel-streamed) operand."""
         return sum(r["sweeps"] for r in self.records)
 
+    def sweeps_of(self, *ops: str) -> int:
+        """Tall sweeps of the named ops only (the blocked QR's trailing-block
+        accounting counts ``panel_cross``/``pad_cross`` + ``trailing_update``)."""
+        return sum(r["sweeps"] for r in self.records if r["op"] in ops)
+
+    def rounds_of(self, *ops: str) -> int:
+        """Serial butterfly rounds of the named ops (``panel_reduce``,
+        ``reorth_reduce``: one record per butterfly, priced from its plan)."""
+        return sum(r["rounds"] for r in self.records if r["op"] in ops)
+
+    def wire_bytes_of(self, *ops: str) -> int:
+        """Plan-priced collective payload bytes of the named ops."""
+        return sum(r["wire_bytes"] for r in self.records if r["op"] in ops)
+
     @property
     def read_bytes(self) -> int:
         return sum(r["read_bytes"] for r in self.records)
@@ -46,6 +63,7 @@ class KernelTraffic:
 
 
 _ACTIVE: list[KernelTraffic] = []
+_SUPPRESS: list[bool] = []
 
 
 def note(op: str, *, sweeps: int = 0, read_bytes: int = 0,
@@ -53,7 +71,7 @@ def note(op: str, *, sweeps: int = 0, read_bytes: int = 0,
          rounds: int = 0, wire_bytes: int = 0, overlapped: int = 0) -> None:
     """Record one kernel-wrapper call into every active tracker (no-op when
     nothing is tracking).  The record has the reference's keys."""
-    if not _ACTIVE:
+    if not _ACTIVE or _SUPPRESS:
         return
     rec = {
         "op": op,
@@ -80,3 +98,15 @@ def track_traffic():
         yield t
     finally:
         _ACTIVE.remove(t)
+
+
+@contextlib.contextmanager
+def suppress():
+    """Drop :func:`note` calls inside the block.  The fixed-shape blocked-QR
+    pipeline runs under it and notes its exact per-call totals itself, as
+    the reference's compiled pipeline does."""
+    _SUPPRESS.append(True)
+    try:
+        yield
+    finally:
+        _SUPPRESS.pop()

@@ -3,17 +3,18 @@
 :class:`QRConfig` has the reference's fields, enums and validation, so a
 config transfers one to one.  :func:`factorize` routes by input rank:
 
-  ==========================  ===========================================
-  input                       driver
-  ==========================  ===========================================
-  (P, m_local, n)             TSQR on P simulated ranks (this slice)
-  (B, P, m_local, n)          B independent TSQRs, one launch per kernel
-  ==========================  ===========================================
+  ==================  =====================  ==============================
+  input               ``panel_width=None``   ``panel_width`` an int
+  ==================  =====================  ==============================
+  (P, m_local, n)     TSQR on P ranks        blocked QR on P ranks
+  (B, P, m_local, n)  B TSQRs, one launch    B blocked QRs, fixed-shape
+                      per kernel             pipeline, one launch per sweep
+  ==================  =====================  ==============================
 
-Routes that wait for later slices raise ``NotImplementedError`` naming
-their ROADMAP item: the blocked driver (``panel_width`` an int, A.7),
-meshes (``mesh=``, A.3), the Gram butterfly (``gram=True``, A.3) and coded
-redundancy (``redundancy="coded"``, A.8).
+All P ranks are simulated on one device.  Routes that wait for later slices
+raise ``NotImplementedError`` naming their ROADMAP item: meshes (``mesh=``,
+A.3), the Gram butterfly (``gram=True``, A.3) and coded redundancy
+(``redundancy="coded"``, A.8).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none; pass ``device="cpu"`` to run on the CPU (the kernels'
@@ -101,10 +102,13 @@ class QRConfig:
 
     ``panel_width=None`` selects the single-panel TSQR workload.
     ``local_r="auto"`` resolves to ``"jnp"`` (Householder) for TSQR, which
-    runs no kernel; ``"cqr2_pallas"`` runs CholeskyQR2 on the Hopper
-    kernels.  ``use_pallas``, ``interpret``, ``block_rows``, ``pipeline``,
-    ``fuse`` and ``recover`` are accepted and validated as in the reference
-    so that configs transfer; the TSQR route does not read them.
+    runs no kernel, and to ``"chol"`` (the Cholesky of the lookahead Gram)
+    for the blocked QR; ``"cqr2_pallas"`` runs CholeskyQR2 on the Hopper
+    kernels.  ``use_pallas`` puts the blocked QR's trailing sweeps and Q's
+    polish Gram on the Hopper kernels; ``pipeline``, ``fuse`` and
+    ``recover`` steer the blocked driver.  The TSQR route reads none of
+    those four, and ``interpret`` and ``block_rows`` are only validated, so
+    that configs transfer from the reference.
     """
 
     panel_width: int | None = None
@@ -191,7 +195,8 @@ class QRConfig:
 
         local_r = self.resolved_local_r()
         return PanelFactorizer(
-            local_qr="jnp" if local_r == "chol" else local_r, reorth=self.reorth
+            local_qr="jnp" if local_r == "chol" else local_r, reorth=self.reorth,
+            use_pallas=self.use_pallas and self.panel_width is not None,
         )
 
 
@@ -220,10 +225,14 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
     """Factorize ``a`` (numpy array or tensor) under ``config``.
 
     3-D input is P row blocks on simulated ranks; 4-D input is a batch of B
-    such stacks factored together (fault-free only).  ``faults`` is a
-    :class:`~repro_torch.collective.faults.FaultSpec`.  Returns
-    :class:`~repro_torch.qr.tsqr.TSQRResult`.
+    such stacks factored together (fault-free only).  ``panel_width=None``
+    runs TSQR, an int the blocked QR.  ``faults`` is a
+    :class:`~repro_torch.collective.faults.FaultSpec` for TSQR and a
+    :class:`~repro_torch.qr.blocked.PanelFaultSchedule` for the blocked QR.
+    Returns :class:`~repro_torch.qr.tsqr.TSQRResult` or
+    :class:`~repro_torch.qr.blocked.BlockedQRResult`.
     """
+    from . import blocked as _blocked
     from . import tsqr as _tsqr
 
     if config is None:
@@ -239,11 +248,6 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
             "mesh= runs the ranks as separate processes, which waits for "
             "DistComm (ROADMAP A.3); pass (P, m_local, n) blocks without a mesh"
         )
-    if config.panel_width is not None:
-        raise NotImplementedError(
-            "the blocked general-matrix QR (panel_width an int) is the next "
-            "slice of the port (ROADMAP A.7); use panel_width=None for TSQR"
-        )
     if config.gram:
         raise NotImplementedError(
             "gram=True (the Gram-butterfly TSQR) is a mesh-only driver, which "
@@ -253,10 +257,12 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
         raise NotImplementedError(
             "redundancy='coded' waits for the coded planner's port (ROADMAP A.8)"
         )
-    if faults is not None and not isinstance(faults, FaultSpec):
+    tsqr_mode = config.panel_width is None
+    want = FaultSpec if tsqr_mode else _blocked.PanelFaultSchedule
+    if faults is not None and not isinstance(faults, want):
         raise TypeError(
-            f"faults must be a FaultSpec for this workload "
-            f"(panel_width=None), got {type(faults).__name__}"
+            f"faults must be a {want.__name__} for this workload "
+            f"(panel_width={config.panel_width}), got {type(faults).__name__}"
         )
     ndim = getattr(a, "ndim", None)
     if ndim not in (3, 4):
@@ -272,5 +278,9 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
         )
     blocks = _as_tensor(a, resolve_device(device))
     if ndim == 3:
-        return _tsqr._factorize_sim(blocks, config, fault_spec=faults)
-    return _tsqr._factorize_batched(blocks, config)
+        if tsqr_mode:
+            return _tsqr._factorize_sim(blocks, config, fault_spec=faults)
+        return _blocked._factorize_sim(blocks, config, faults=faults)
+    if tsqr_mode:
+        return _tsqr._factorize_batched(blocks, config)
+    return _blocked._factorize_batched(blocks, config)

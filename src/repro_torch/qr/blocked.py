@@ -1,0 +1,622 @@
+"""Fault-tolerant right-looking blocked QR for general m×n matrices.
+
+TSQR is the *panel* factorization inside a right-looking blocked QR, and the
+butterfly's ``2^s``-copy redundancy protects every panel's reduced factors
+(Coti, "Fault Tolerant QR Factorization for General Matrices").  Per column
+panel ``k`` of width ``b``:
+
+  1. **Panel reduction** — each rank's local R of the panel (by default the
+     Cholesky of the lookahead Gram, ``local_r="chol"``) rides the
+     fault-tolerant butterfly; every valid rank ends with the same ``R_kk``.
+  2. **Explicit panel Q** — ``Q_k = A_panel R_kk⁻¹`` locally, plus
+     ``reorth`` CholeskyQR polish passes over the same butterfly.
+  3. **Block row of R** — ``W = R_totᵀ⁻¹ Σ_ranks A_panelᵀ A_trail``.  The
+     cross products ride the *same* butterfly as the panel R by default
+     (``fuse="auto"``: one stacked payload, ``log P`` rounds per panel);
+     ``fuse="off"`` runs a second ``sum`` butterfly after Q.
+  4. **Trailing update** — ``A_trail ← A_trail − Q_k W`` by the
+     ``trailing_update`` kernel, which also accumulates the *next* panel's
+     Gram and cross products in the same sweep, so K panels cost K
+     trailing-block sweeps (a ``panel_cross`` prime plus K − 1 updates).
+
+A death during phase 1 or 3 follows the variant's butterfly guarantee.
+Ranks that lose a replicated factor are restored at the phase boundary by a
+replica fetch (``recover="replica"``); with ``recover="off"`` the poisoned
+ranks stay NaN and rot every later panel.  ``valid`` reports the strict
+survivors; ``reports`` the per-panel tolerance verdicts and recovery counts.
+
+Two drivers, equal bit for bit on fault-free plans:
+
+  * the eager per-panel driver (:func:`_blocked_body`) sweeps the live,
+    shrinking trailing block and handles every fault schedule;
+  * the fixed-shape pipeline (:func:`_pipeline_body`) keeps the working
+    matrix at the padded width ``n_pad = K·b`` in a shifted layout (the live
+    panel is always columns ``[0, b)``), primed by ``pad_cross`` when
+    ``n < n_pad``.  Every panel has the same shapes, so a later slice can
+    replay it as one CUDA graph.  The trailing update writes A_new into the
+    leading columns of a second buffer whose last ``b`` columns are zero,
+    so the shift left costs no copy.  Fault-free runs take it under
+    ``pipeline="auto"``; the 4-D batched route always does.
+
+The reference's ``lax.scan`` becomes a Python loop over the same fixed
+shapes; ``ShardMapComm`` and the coded scheme wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.collective.comm import Comm, SimComm
+from repro_torch.collective.engine import ft_allreduce, recover_payload
+from repro_torch.collective.faults import FaultSpec, within_tolerance
+from repro_torch.collective.plan import Plan, make_plan
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import traffic as _traffic
+
+from .api import Fuse, Pipeline, QRConfig, Recover
+from .panel import PanelFactorizer, chol_r
+
+__all__ = ["BlockedQRResult", "PanelFaultSchedule", "PanelReport", "panel_widths"]
+
+
+def panel_widths(n: int, panel_width: int) -> tuple[int, ...]:
+    """Column widths of the ``⌈n / panel_width⌉`` panels (ragged tail)."""
+    if panel_width <= 0:
+        raise ValueError(f"panel_width must be positive, got {panel_width}")
+    k = math.ceil(n / panel_width)
+    return tuple(min(panel_width, n - i * panel_width) for i in range(k))
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelFaultSchedule:
+    """Fail-stop deaths scheduled into a blocked factorization.
+
+    ``panel[k]`` strikes during panel ``k``'s R reduction (phase 1);
+    ``update[k]`` during its cross-product reduction (phase 3, the
+    observable "death during the trailing update").  Each value is a
+    :class:`~repro_torch.collective.faults.FaultSpec` whose steps index
+    that butterfly's exchanges.
+    """
+
+    panel: Mapping[int, FaultSpec] = dataclasses.field(default_factory=dict)
+    update: Mapping[int, FaultSpec] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def of(cls, panel=None, update=None) -> "PanelFaultSchedule":
+        """From ``{panel_index: FaultSpec | {rank: step}}`` mappings."""
+
+        def norm(d):
+            return {
+                int(k): v if isinstance(v, FaultSpec) else FaultSpec.of(v)
+                for k, v in (d or {}).items()
+            }
+
+        return cls(panel=norm(panel), update=norm(update))
+
+    def __bool__(self) -> bool:
+        return bool(self.panel) or bool(self.update)
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelReport:
+    """Host-side verdicts for one panel.
+
+    ``fused`` — the panel's R and cross-product leaves ship as one stacked
+    payload over ``plan_r``, issued as soon as the producing sweep lands its
+    lookahead accumulators and consumed one stage later.  A panel with an
+    update-phase fault cannot fuse: the death indexes the second
+    butterfly's exchanges.
+    """
+
+    panel: int
+    plan_r: Plan
+    plan_w: Plan | None
+    within_tolerance_r: bool
+    within_tolerance_w: bool
+    recovered_r: int          # contributions restored after phase 1
+    recovered_w: int          # …after phase 3
+    recoverable: bool         # some rank held every replicated factor
+    fused: bool = False
+    scheme: str = "butterfly"
+
+    @property
+    def within_tolerance(self) -> bool:
+        return self.within_tolerance_r and self.within_tolerance_w
+
+
+@dataclasses.dataclass
+class BlockedQRResult:
+    """Outcome of a fault-tolerant blocked QR.
+
+    ``r``       — (P, n, n), or (B, P, n, n) for a batch: the assembled
+                  upper-triangular factor on every rank.
+    ``valid``   — (P,) (or (B, P)) strict survivors: valid through every
+                  panel's reductions without replica recovery.
+    ``q``       — optional per-rank (m_local, n) orthonormal factor.
+    ``reports`` — per-panel :class:`PanelReport`.
+    ``detected``— the coded scheme's flags; always None in this port.
+    """
+
+    r: torch.Tensor
+    valid: torch.Tensor
+    q: torch.Tensor | None
+    reports: tuple[PanelReport, ...]
+    panel_width: int
+    detected: torch.Tensor | None = None
+
+    @property
+    def n_panels(self) -> int:
+        return len(self.reports)
+
+    @property
+    def recoverable(self) -> bool:
+        return all(rep.recoverable for rep in self.reports)
+
+
+# ---------------------------------------------------------------------------
+# Host-side planning
+# ---------------------------------------------------------------------------
+
+def _build_reports(variant: str, p: int, widths: tuple[int, ...],
+                   faults: PanelFaultSchedule, recover: Recover,
+                   fuse: Fuse) -> tuple[PanelReport, ...]:
+    n_panels = len(widths)
+    for key in set(faults.panel) | set(faults.update):
+        if not 0 <= key < n_panels:
+            raise ValueError(
+                f"fault schedule names panel {key}, but only {n_panels} panels exist"
+            )
+    if (n_panels - 1) in faults.update:
+        raise ValueError(
+            f"panel {n_panels - 1} is the last panel — it has no trailing "
+            "update to die during"
+        )
+    reports = []
+    for k in range(n_panels):
+        spec_r = faults.panel.get(k, FaultSpec.none())
+        last = k == n_panels - 1
+        plan_w = None
+        tol_w = True
+        # fuse unless the schedule pins a death to the second butterfly
+        fused = fuse is not Fuse.OFF and (last or k not in faults.update)
+        plan_r = make_plan(variant, p, spec_r)
+        tol_r = within_tolerance(variant, spec_r, plan_r.n_steps)
+        if not last:
+            spec_w = faults.update.get(k, FaultSpec.none())
+            plan_w = make_plan(variant, p, spec_w)
+            tol_w = within_tolerance(variant, spec_w, plan_w.n_steps)
+        recoverable = bool(plan_r.final_valid.any()) and (
+            plan_w is None or bool(plan_w.final_valid.any())
+        )
+        # recovered_* counts the ranks a replica fetch restores (zero when
+        # recovery is off: the ranks stay poisoned)
+        fetching = recover is Recover.REPLICA and recoverable
+        rec_r = int((~plan_r.final_valid).sum()) if fetching else 0
+        if fused and plan_w is not None:
+            rec_w = rec_r          # one stacked fetch restores both leaves
+        else:
+            rec_w = int((~plan_w.final_valid).sum()) if fetching and plan_w is not None else 0
+        reports.append(PanelReport(
+            panel=k, plan_r=plan_r, plan_w=plan_w, within_tolerance_r=tol_r,
+            within_tolerance_w=tol_w, recovered_r=rec_r, recovered_w=rec_w,
+            recoverable=recoverable, fused=fused,
+        ))
+    if fuse is Fuse.ON:
+        bad = [r.panel for r in reports if not r.fused]
+        if bad:
+            raise ValueError(
+                f"fuse=Fuse.ON but panels {bad} carry update-phase faults, "
+                "which require the split two-butterfly schedule; schedule "
+                "the death on the panel phase or use Fuse.AUTO"
+            )
+    return tuple(reports)
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces of both drivers
+# ---------------------------------------------------------------------------
+
+def _solve_w(r_tot, c_sum, pad_to: int | None = None):
+    """W = R_totᵀ⁻¹ C  (C = Σ A_panelᵀ A_trail, so W = Q_kᵀ A_trail).
+
+    ``pad_to`` right-pads the right-hand side with zero columns before the
+    solve and slices the result back: both drivers solve every panel at the
+    padded width ``n_pad − b``, so a batched triangular solve whose
+    per-column results depend on the width still gives both the same bits.
+    """
+    nt = c_sum.shape[-1]
+    if pad_to is not None and pad_to > nt:
+        c_sum = torch.nn.functional.pad(c_sum, (0, pad_to - nt))
+    w = torch.linalg.solve_triangular(r_tot.mT, c_sum, upper=False)
+    return w[..., :nt] if pad_to is not None and pad_to > nt else w
+
+
+def _local_r(pf: PanelFactorizer, local_r: str, panel, g):
+    """The panel's local R: the Cholesky of the lookahead Gram (``"chol"``,
+    no panel read) or the factorizer's local QR of the panel."""
+    if local_r == "chol":
+        return chol_r(g)
+    return pf.local_fn()(panel.to(torch.float32).contiguous())
+
+
+def _form_q(pf: PanelFactorizer, panel, r_red, comm: Comm, dtype):
+    q_k, r_tot = pf.form_q(panel.to(torch.float32), r_red, comm)
+    return q_k.to(dtype).contiguous(), r_tot
+
+
+def _assemble(rows, r_last, n: int, b: int, like):
+    """R in original column coordinates from the per-panel (…, b, ≥ n − c0)
+    block rows and the last panel's triangle."""
+    r_full = torch.zeros(like.shape[:-2] + (n, n), dtype=torch.float32, device=like.device)
+    for k, row in enumerate(rows):
+        c0 = k * b
+        r_full[..., c0:c0 + b, c0:] = row[..., :, :n - c0]
+    c0 = len(rows) * b
+    r_full[..., c0:, c0:] = r_last
+    return r_full
+
+
+# ---------------------------------------------------------------------------
+# The eager per-panel driver (every fault schedule)
+# ---------------------------------------------------------------------------
+
+def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple[int, ...],
+                  pf: PanelFactorizer, *, local_r: str, compute_q: bool, use_pallas: bool):
+    n = a.shape[-1]
+    n_pad = widths[0] * len(widths)
+    r_full = torch.zeros(a.shape[:-2] + (n, n), dtype=torch.float32, device=a.device)
+    valid = comm.take(np.ones(comm.n_ranks, dtype=bool))
+    q_cols = []
+    trail = a
+    s = kops.panel_cross(a, split=widths[0], use_pallas=use_pallas)      # prime
+
+    def issue(rep, panel, g_loc, c_loc):
+        """Put a fused panel's single butterfly on the wire: the stacked
+        (R, Σ AᵖᵀAᵗ) payload over ``plan_r`` (R only for the last panel),
+        right after the sweep that produced the lookahead accumulators."""
+        r_loc = _local_r(pf, local_r, panel, g_loc)
+        if rep.plan_w is None:
+            r_kk, valid_r = pf.reduce_r_prepared(r_loc, comm, rep.plan_r)
+            return r_kk, None, valid_r
+        (r_kk, c_sum), v = pf.reduce_panel_fused(r_loc, c_loc, comm, rep.plan_r)
+        return r_kk, c_sum, v
+
+    pending = None
+    if reports[0].fused:
+        b0 = widths[0]
+        pending = issue(reports[0], trail[..., :, :b0], s[..., :, :b0], s[..., :, b0:])
+    c0 = 0
+    for rep, b in zip(reports, widths):
+        nt = n - c0 - b
+        panel = trail[..., :, :b]
+        # -- phase 1: panel reduction(s) over the butterfly -----------------
+        if rep.fused:
+            r_kk, c_sum, valid_r = pending
+            pending = None
+        else:
+            r_loc = _local_r(pf, local_r, panel, s[..., :, :b])
+            r_kk, valid_r = pf.reduce_r_prepared(r_loc, comm, rep.plan_r)
+            c_sum = None
+        valid = valid & valid_r
+        if rep.recovered_r:
+            if c_sum is not None:
+                # one fetch restores both stacked leaves
+                r_kk, c_sum = recover_payload(
+                    (r_kk, c_sum), comm, rep.plan_r.final_valid, plan=rep.plan_r)
+            else:
+                r_kk = recover_payload(r_kk, comm, rep.plan_r.final_valid, plan=rep.plan_r)
+        # -- phase 2: explicit panel Q (+ polish) ---------------------------
+        # The polish's Gram all-reduce mixes every rank's contribution, so a
+        # no-recovery run that left poisoned ranks skips it: survivors keep
+        # their exact unpolished factor instead of inheriting the NaN.
+        clean = bool(rep.plan_r.final_valid.all()) or bool(rep.recovered_r)
+        pf_k = pf if clean else dataclasses.replace(pf, reorth=0)
+        q_k, r_tot = _form_q(pf_k, panel, r_kk, comm, a.dtype)
+        if compute_q:
+            q_cols.append(q_k)
+        if not nt:
+            r_full[..., c0:c0 + b, c0:] = r_tot
+            break
+        # -- phase 3: block row of R ----------------------------------------
+        if not rep.fused:
+            # split schedule: a second, serialized sum butterfly over its own
+            # plan (update-phase deaths strike here)
+            c_sum, valid_w = ft_allreduce(s[..., :, b:], comm, op="sum", plan=rep.plan_w)
+            valid = valid & valid_w
+            if rep.recovered_w:
+                c_sum = recover_payload(c_sum, comm, rep.plan_w.final_valid, plan=rep.plan_w)
+        w = _solve_w(r_tot, c_sum, pad_to=n_pad - widths[0])
+        r_full[..., c0:c0 + b, c0:] = torch.cat([r_tot, w], dim=-1)
+        # -- phase 4: one-sweep trailing update + lookahead -----------------
+        b2 = widths[rep.panel + 1]
+        trail, s = kops.trailing_update(trail[..., :, b:], q_k, w.to(a.dtype).contiguous(),
+                                        next_width=b2, use_pallas=use_pallas)
+        nxt = reports[rep.panel + 1]
+        if nxt.fused:
+            # the next panel's butterfly goes out as soon as the sweep lands
+            pending = issue(nxt, trail[..., :, :b2], s[..., :, :b2], s[..., :, b2:])
+        c0 += b
+    q = torch.cat(q_cols, dim=-1) if compute_q else None
+    return r_full, valid, q
+
+
+# ---------------------------------------------------------------------------
+# The fixed-shape pipeline (fault-free hot path)
+# ---------------------------------------------------------------------------
+
+def _plans_fault_free(reports: tuple[PanelReport, ...]) -> bool:
+    """Pipeline eligibility: every collective rides the straight-line fast
+    path (also excludes ``tree``, whose fault-free plans leave non-root ranks
+    invalid)."""
+    return all(
+        rep.plan_r.is_fault_free and (rep.plan_w is None or rep.plan_w.is_fault_free)
+        for rep in reports
+    )
+
+
+def _resolve_pipeline(pipeline: Pipeline, reports) -> bool:
+    """True → the fixed-shape pipeline, False → the eager driver."""
+    fault_free = _plans_fault_free(reports)
+    if pipeline is Pipeline.ON and not fault_free:
+        raise ValueError(
+            "pipeline=Pipeline.ON requires fault-free plans (the fixed-shape "
+            "pipeline has no validity machinery); faulty plans route to the "
+            "general driver under Pipeline.AUTO"
+        )
+    return fault_free and pipeline is not Pipeline.OFF
+
+
+class _ShiftedWork:
+    """The pipeline's working matrix at the padded width ``n_pad``.
+
+    :meth:`update` runs one trailing sweep on columns ``[b, n_pad)`` and
+    writes A_new into columns ``[0, n_pad − b)`` of a second buffer whose
+    last ``b`` columns are zero, so the new matrix is the old one shifted
+    left by ``b`` with fresh zero columns, without a copy.  The buffer read
+    becomes the next one written (its last ``b`` columns zeroed) unless it
+    is the caller's input.
+    """
+
+    def __init__(self, awork, b: int, use_pallas: bool, owned: bool):
+        self.awork, self.b, self.use_pallas = awork, b, use_pallas
+        self.owned = owned
+        self.spare = None
+
+    def update(self, q_k, w):
+        awork, b = self.awork, self.b
+        n_pad = awork.shape[-1]
+        out = self.spare
+        if out is None:
+            out = torch.empty_like(awork)
+            out[..., :, n_pad - b:].zero_()
+        _, s_new = kops._trailing_update_raw(
+            awork[..., :, b:], q_k, w.to(awork.dtype).contiguous(), next_width=b,
+            use_pallas=self.use_pallas, out=out[..., :, :n_pad - b])
+        if self.owned:
+            awork[..., :, n_pad - b:].zero_()
+            self.spare = awork
+        self.awork, self.owned = out, True
+        return out, torch.cat([s_new, s_new.new_zeros(s_new.shape[:-1] + (b,))], dim=-1)
+
+
+def _prime(a, b: int, n_pad: int, use_pallas: bool):
+    """Padded working copy (only when ``n < n_pad``) and panel 0's lookahead,
+    in one sweep.  Returns ``(awork, s, owned)``."""
+    if n_pad == a.shape[-1]:
+        return a, kops._panel_cross_raw(a, split=b, use_pallas=use_pallas), False
+    awork, s = kops._pad_cross_raw(a, split=b, out_width=n_pad, use_pallas=use_pallas)
+    return awork, s, True
+
+
+def _pipeline_body(a, comm: Comm, plan: Plan, widths: tuple[int, ...], pf: PanelFactorizer, *,
+                   local_r: str, compute_q: bool, use_pallas: bool, fused: bool = True):
+    """The fixed-shape driver (``plan`` is the one fault-free plan every
+    collective shares).  ``fused`` runs the one-butterfly-per-panel schedule
+    with each reduction issued one stage ahead; otherwise the split
+    two-butterfly schedule.  Both equal the eager driver bit for bit."""
+    b, k_panels, b_last = widths[0], len(widths), widths[-1]
+    n = a.shape[-1]
+    awork, s, owned = _prime(a, b, b * k_panels, use_pallas)
+    work = _ShiftedWork(awork, b, use_pallas, owned)
+    rows, qs = [], []
+    if not fused:
+        for _ in range(k_panels - 1):
+            awork = work.awork
+            r_loc = _local_r(pf, local_r, awork[..., :, :b], s[..., :, :b])
+            r_kk, _ = pf.reduce_r_prepared(r_loc, comm, plan)
+            q_k, r_tot = _form_q(pf, awork[..., :, :b], r_kk, comm, a.dtype)
+            c_sum, _ = ft_allreduce(s[..., :, b:], comm, op="sum", plan=plan)
+            w = _solve_w(r_tot, c_sum)
+            _, s = work.update(q_k, w)
+            rows.append(torch.cat([r_tot, w], dim=-1))
+            qs.append(q_k)
+        panel = work.awork[..., :, :b_last]
+        r_loc = _local_r(pf, local_r, panel, s[..., :b_last, :b_last])
+        r_red, _ = pf.reduce_r_prepared(r_loc, comm, plan)
+    else:
+        def issue(awork, s):
+            r_loc = _local_r(pf, local_r, awork[..., :, :b], s[..., :, :b])
+            (r_red, c_red), _ = pf.reduce_panel_fused(r_loc, s[..., :, b:], comm, plan)
+            return r_red, c_red
+
+        def issue_last(panel, g):
+            # the last panel has no cross leaf; reduce at the exact ragged
+            # width (a width-b Gram of a ragged panel is singular)
+            r_red, _ = pf.reduce_r_prepared(_local_r(pf, local_r, panel, g), comm, plan)
+            return r_red
+
+        if k_panels == 1:
+            r_red = issue_last(awork[..., :, :b_last], s[..., :b_last, :b_last])
+        else:
+            r_red, c_red = issue(awork, s)
+            for k in range(k_panels - 1):
+                q_k, r_tot = _form_q(pf, work.awork[..., :, :b], r_red, comm, a.dtype)
+                w = _solve_w(r_tot, c_red)
+                awork, s = work.update(q_k, w)
+                if k < k_panels - 2:
+                    r_red, c_red = issue(awork, s)
+                else:
+                    r_red = issue_last(awork[..., :, :b_last], s[..., :b_last, :b_last])
+                rows.append(torch.cat([r_tot, w], dim=-1))
+                qs.append(q_k)
+        panel = work.awork[..., :, :b_last]
+    q_last, r_last = _form_q(pf, panel, r_red, comm, a.dtype)
+    r_full = _assemble(rows, r_last, n, b, a)
+    q = torch.cat(qs + [q_last], dim=-1) if compute_q else None
+    return r_full, comm.take(np.ones(comm.n_ranks, dtype=bool)), q
+
+
+# ---------------------------------------------------------------------------
+# Accounting: the reference's records for the same call
+# ---------------------------------------------------------------------------
+
+def _note_reductions(reports, widths, c_widths, reorth_counts, reorth_plan: Plan,
+                     wire_scale: int = 1) -> None:
+    """One ``panel_reduce`` record per butterfly (a fused panel is one
+    record carrying the stacked payload, a split panel two) plus a
+    ``reorth_reduce`` record for the polish passes: serial rounds,
+    plan-priced wire bytes and the overlap flag.  ``c_widths`` is the cross
+    width each panel reduces (padded in the pipeline, live in the eager
+    driver), ``reorth_counts`` the polish passes each panel ran and
+    ``wire_scale`` the batch factor."""
+    for rep, b, cw, n_reorth in zip(reports, widths, c_widths, reorth_counts):
+        overlapped = 1 if rep.fused and rep.panel > 0 else 0
+        if rep.fused or rep.plan_w is None:
+            leaves = [(b, b, 4, False)]
+            if rep.plan_w is not None:
+                leaves.append((b, cw, 4, False))
+            recs = [(rep.plan_r, leaves, overlapped)]
+        else:
+            recs = [(rep.plan_r, [(b, b, 4, False)], 0), (rep.plan_w, [(b, cw, 4, False)], 0)]
+        for plan, leaves, ov in recs:
+            _traffic.note("panel_reduce", dispatches=0, rounds=plan.round_count(),
+                          wire_bytes=wire_scale * plan.bytes_on_wire_stacked(leaves),
+                          overlapped=ov)
+        if n_reorth:
+            _traffic.note(
+                "reorth_reduce", dispatches=0, rounds=n_reorth * reorth_plan.round_count(),
+                wire_bytes=wire_scale * n_reorth
+                * reorth_plan.bytes_on_wire_stacked([(b, b, 4, True)]),
+            )
+
+
+def _note_eager_reductions(reports, widths, n: int, pf: PanelFactorizer) -> None:
+    """Collective records of one eager factorization: cross leaves at their
+    live widths, no polish on panels a no-recovery fault left unclean."""
+    c_widths, c0 = [], 0
+    for b in widths:
+        c_widths.append(n - c0 - b)
+        c0 += b
+    reorth_counts = tuple(
+        pf.reorth if bool(rep.plan_r.final_valid.all()) or rep.recovered_r else 0
+        for rep in reports
+    )
+    _note_reductions(reports, widths, tuple(c_widths), reorth_counts,
+                     make_plan("redundant", reports[0].plan_r.n_ranks))
+
+
+def _note_pipeline(shape, dtype, widths, reports, reorth: int) -> None:
+    """Per-call records of the fixed-shape pipeline, equal to the
+    reference's: the prime and K − 1 trailing sweeps at the padded width
+    (only the trailing path; a ``cqr2`` local QR's narrow sweeps are not
+    recorded), then the collective records."""
+    lead = math.prod(shape[:-2])
+    m, n = shape[-2], shape[-1]
+    b, k_panels = widths[0], len(widths)
+    n_pad = b * k_panels
+    it = torch.empty((), dtype=dtype).element_size()
+    if n_pad == n:
+        recs = [("panel_cross", lead * m * n * it, lead * b * n * 4)]
+    else:
+        recs = [("pad_cross", lead * m * n * it, lead * (m * n_pad * it + b * n_pad * 4))]
+    nt = n_pad - b
+    recs += [("trailing_update", lead * (m * nt * it + m * b * it + b * nt * it),
+              lead * (m * nt * it + b * nt * 4))] * (k_panels - 1)
+    for op, read, write in recs:
+        _traffic.note(op, sweeps=1, read_bytes=read, write_bytes=write)
+    c_widths = tuple(n_pad - b if k < k_panels - 1 else 0 for k in range(k_panels))
+    _note_reductions(reports, widths, c_widths, (reorth,) * k_panels,
+                     make_plan("redundant", reports[0].plan_r.n_ranks),
+                     wire_scale=math.prod(shape[:-3]))
+
+
+# ---------------------------------------------------------------------------
+# Entries (routed to by repro_torch.qr.api.factorize)
+# ---------------------------------------------------------------------------
+
+def _setup(m_local: int, n: int, p: int, config: QRConfig, faults: PanelFaultSchedule | None):
+    """Geometry validation and host planning; policy validation already
+    happened in ``QRConfig``."""
+    widths = panel_widths(n, config.panel_width)
+    if m_local < max(widths):
+        raise ValueError(
+            f"each rank's row block ({m_local} rows) must be at least as "
+            f"tall as the widest panel ({max(widths)}); shrink panel_width "
+            "or use fewer ranks"
+        )
+    reports = _build_reports(config.variant, p, widths, faults or PanelFaultSchedule(),
+                             config.recover, config.fuse)
+    return widths, reports, config.factorizer()
+
+
+def _run_pipeline(a, comm: Comm, widths, reports, pf: PanelFactorizer, config: QRConfig,
+                  shape):
+    with _traffic.suppress():
+        out = _pipeline_body(
+            a, comm, make_plan(config.variant, comm.n_ranks), widths, pf,
+            local_r=config.resolved_local_r(), compute_q=config.compute_q,
+            use_pallas=config.use_pallas, fused=config.fuse is not Fuse.OFF,
+        )
+    _note_pipeline(shape, a.dtype, widths, reports, config.reorth)
+    return out
+
+
+def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
+                   faults: PanelFaultSchedule | None = None) -> BlockedQRResult:
+    """``a_blocks`` is (P, m_local, n) on the target device.  Fault-free
+    plans take the fixed-shape pipeline per ``config.pipeline``; faulty
+    plans the eager driver."""
+    p, m_local, n = a_blocks.shape
+    widths, reports, pf = _setup(m_local, n, p, config, faults)
+    comm = SimComm(p, a_blocks.device)
+    if _resolve_pipeline(config.pipeline, reports):
+        r, valid, q = _run_pipeline(a_blocks, comm, widths, reports, pf, config,
+                                    a_blocks.shape)
+    else:
+        r, valid, q = _blocked_body(
+            a_blocks, comm, reports, widths, pf, local_r=config.resolved_local_r(),
+            compute_q=config.compute_q, use_pallas=config.use_pallas,
+        )
+        _note_eager_reductions(reports, widths, n, pf)
+    return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,
+                           panel_width=config.panel_width)
+
+
+def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResult:
+    """B independent fault-free factorizations of a (B, P, m_local, n) stack
+    through the fixed-shape pipeline.  The rank axis is moved to the front
+    (one copy of the stack), so every kernel sweep covers all B·P blocks in
+    one launch.  Returns r (B, P, n, n), valid (B, P) and q (B, P, m_local,
+    n)."""
+    bsz, p, m_local, n = a_batch.shape
+    widths, reports, pf = _setup(m_local, n, p, config, None)
+    if not _plans_fault_free(reports):
+        raise ValueError(
+            f"variant {config.variant!r} is not pipeline-eligible (its "
+            "fault-free plans leave ranks invalid, which the fixed-shape "
+            "pipeline has no machinery to track); factor the matrices one "
+            "at a time through the 3-D entry instead"
+        )
+    ranks_first = a_batch.transpose(0, 1).contiguous()
+    r, valid, q = _run_pipeline(ranks_first, SimComm(p, a_batch.device), widths, reports,
+                                pf, config, a_batch.shape)
+    if q is not None:
+        q = q.transpose(0, 1).contiguous()
+    return BlockedQRResult(
+        r=r.transpose(0, 1).contiguous(), valid=valid.expand(bsz, p).clone(), q=q,
+        reports=reports, panel_width=config.panel_width,
+    )

@@ -153,7 +153,7 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("config,kwargs,item", [
-    (QRConfig(panel_width=4), {}, "A.7"),
+    (QRConfig(panel_width=4, redundancy="coded"), {}, "A.8"),
     (QRConfig(), {"mesh": object()}, "A.3"),
     (QRConfig(gram=True), {}, "A.3"),
     (QRConfig(redundancy="coded"), {}, "A.8"),
