@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Two main paths, each driven with the launch counts set to 0 just before it
-and read just after:
+Five paths, each driven with the launch counts set to 0 just before it and
+read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
   P = 8 ranks, factored by fault-tolerant TSQR whose local QR is CholeskyQR2
@@ -15,6 +15,15 @@ and read just after:
   use_pallas=True)``) at 8 × 2^17 × 512 and 8 × 2^17 × 480: the prime
   (``panel_cross``, or ``pad_cross`` when the pipeline pads the width) and
   one ``trailing_update`` sweep per later panel, with Q's polish Gram on
+  ``gram``.
+* **combine_gram**: the Gram-butterfly's combine G = R₁ᵀR₁ + R₂ᵀR₂ through
+  its entry point ``ops.combine_gram(use_pallas=True)``, at 8 × n × n.
+* **Coded TSQR** (``QRConfig(redundancy="coded", parity=3)``) at 8 × 2^19 ×
+  128 and 8 × 2^17 × 32, fault-free and with deaths, stragglers, silent
+  corruption (``observed=``) and an over-budget loss, on ``gram`` and
+  ``fused_apply_gram``.
+* **Coded blocked QR** (``parity=2``, ``use_pallas=True``) at 8 × 2^17 ×
+  512: the eager driver's ``panel_cross``, ``trailing_update`` and polish
   ``gram``.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
@@ -44,16 +53,24 @@ Phases (each raises on failure; the script then exits non-zero):
    validity against the plans, every survivor's R against a float64
    Householder R, ‖QᵀQ − I‖, pipeline ≡ eager ≡ split schedule bit for bit,
    and 1 prime + K − 1 trailing sweeps per factorization;
-6. profile one call of each main path, time each kernel (CUDA events,
+6. hold ``combine_gram`` against its plain version (f32 and bf16), against
+   a float64 product, for exact symmetry and for the same bits on a rerun;
+7. drive coded TSQR and the coded blocked QR: fault-free R equal to the
+   butterfly's bit for bit, the wire observed through ``InstrumentedComm``
+   equal to the plan, validity and ``detected`` as the plans and the
+   reference give them, decoded R within ``reconstruction_tol``, the launch
+   counts; then the stock collective and blocked fault scenarios on the card;
+8. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound, and time
-   ``factorize`` end to end.
+   ``factorize`` end to end (coded against the butterfly as well).
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -101,6 +118,7 @@ REPLACES = {
     "trailing_update": "src/repro/kernels/trailing_update.py:129",
     "panel_cross": "src/repro/kernels/trailing_update.py:177",
     "pad_cross": "src/repro/kernels/trailing_update.py:241",
+    "combine_gram": "src/repro/kernels/combine_gram.py:48",
 }
 # The path whose run gives each kernel's ``launches``: factorize (the TSQR
 # main path) runs CholeskyQR2 R-only; Q's sweep 3 is only in the kernel
@@ -108,11 +126,17 @@ REPLACES = {
 # sweeps.  Each path's counts start at 0.
 KERNEL_PATH = {"gram": "factorize", "fused_apply_gram": "factorize",
                "apply_right": "cholesky_qr2", "trailing_update": "blocked",
-               "panel_cross": "blocked", "pad_cross": "blocked"}
+               "panel_cross": "blocked", "pad_cross": "blocked",
+               "combine_gram": "combine_gram"}
 # The shape each kernel's time and error in the ``kernels`` line are taken at.
 KERNEL_SHAPE = {"gram": HEADLINE, "fused_apply_gram": HEADLINE, "apply_right": HEADLINE,
                 "trailing_update": "general_full", "panel_cross": "general_full",
-                "pad_cross": "general_ragged"}
+                "pad_cross": "general_ragged", "combine_gram": "8x512"}
+# combine_gram's widths (8 matrices each; n <= 512 in every TSQR use) and the
+# coded scheme's parity counts.
+COMBINE_WIDTHS = (32, 128, 512)
+CODED_PARITY = 3
+BLOCKED_PARITY = 2
 
 
 class SmokeFailure(AssertionError):
@@ -147,10 +171,15 @@ def main() -> int:
     card = smoke.card()
     smoke.kernel_checks()
     smoke.blocked_kernel_checks()
+    smoke.combine_gram_path()
     smoke.main_path()
     smoke.blocked_path()
+    smoke.coded_tsqr_path()
+    smoke.coded_blocked_path()
+    smoke.scenarios()
     smoke.timings()
     smoke.blocked_timings()
+    smoke.combine_gram_timing()
     log(json.dumps({"kernels": smoke.kernel_rows()}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -164,6 +193,7 @@ class Smoke:
     def __init__(self, torch):
         from repro_torch.kernels import _build, dispatch, ops, ref
         from repro_torch.kernels.apply_right import apply_right
+        from repro_torch.kernels.combine_gram import combine_gram
         from repro_torch.kernels.fused_apply_gram import fused_apply_gram
         from repro_torch.kernels.gram import gram
         from repro_torch.kernels.trailing_update import pad_cross, panel_cross, trailing_update
@@ -172,12 +202,14 @@ class Smoke:
         self.build_mod, self.dispatch, self.ops, self.ref = _build, dispatch, ops, ref
         self.kernels = {"gram": gram, "fused_apply_gram": fused_apply_gram,
                         "apply_right": apply_right, "trailing_update": trailing_update,
-                        "panel_cross": panel_cross, "pad_cross": pad_cross}
+                        "panel_cross": panel_cross, "pad_cross": pad_cross,
+                        "combine_gram": combine_gram}
         self.gen = torch.Generator(device=DEVICE)
         self.errors: dict[str, float] = {}
         self.launches: dict[str, dict[str, int]] = {}  # path -> kernel -> count
         self.times: dict[tuple[str, str], dict] = {}
         self.e2e: dict[tuple[str, str], float] = {}
+        self.blocked_full = None      # general_full's input and float64 R
 
     # -- helpers --------------------------------------------------------------
 
@@ -547,6 +579,7 @@ class Smoke:
         data = {name: self.randn(shape, 3000 + i)
                 for i, (name, shape) in enumerate(BLOCKED_SHAPES.items())}
         truth = {name: self.truth_r(a) for name, a in data.items()}
+        self.blocked_full = (data["general_full"], truth["general_full"])
         death = {"panel {1: {5: 1}}": PanelFaultSchedule.of(panel={1: {5: 1}}),
                  "update {0: {3: 0}}": PanelFaultSchedule.of(update={0: {3: 0}}),
                  "update {0: {5: 1}}": PanelFaultSchedule.of(update={0: {5: 1}})}
@@ -651,6 +684,314 @@ class Smoke:
                     f"pipeline={pipeline}: median {statistics.median(samples):.3f} ms "
                     f"(min {min(samples):.3f}, max {max(samples):.3f}, 5 runs)")
 
+    # -- phase 6: combine_gram ----------------------------------------------
+
+    def combine_gram_path(self) -> None:
+        """Drive the kernel's entry point, ``ops.combine_gram(use_pallas=
+        True)``, at 8 × n × n in f32 and bf16 with the counts set to 0 just
+        before and read just after; then hold every output against the plain
+        version, and at n = 512 (f32) against a float64 product, for exact
+        symmetry and for the same bits on a rerun."""
+        torch, ref = self.torch, self.ref
+        counts = self.dispatch.launches
+        inputs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in COMBINE_WIDTHS:
+                inputs[(dtype, n)] = tuple(self.randn((P, n, n), 600 + n + i, dtype)
+                                           for i in (0, 1))
+        torch.cuda.synchronize()
+        counts.reset()
+        outs = {key: self.ops.combine_gram(r1, r2, use_pallas=True)
+                for key, (r1, r2) in inputs.items()}
+        torch.cuda.synchronize()
+        self.launches["combine_gram"] = counts.as_dict()
+        check(counts.combine_gram == len(inputs), f"combine_gram launches {counts.as_dict()}, "
+              f"want {len(inputs)}")
+        for (dtype, n), g in outs.items():
+            dname = str(dtype).removeprefix("torch.")
+            r1, r2 = inputs[(dtype, n)]
+            err = self.rel_err(g, ref.combine_gram(r1, r2))
+            sym = torch.equal(g, g.mT)
+            rerun = torch.equal(self.kernels["combine_gram"](r1, r2), g)
+            line = f"[combine_gram] {dname} (8, {n}, {n}) rel err {err:.2e} symmetric {sym} " \
+                   f"rerun {rerun}"
+            check(err <= TOL[dname], f"combine_gram {dname} n={n}: rel err {err:.3e} "
+                  f"> {TOL[dname]}")
+            check(sym, f"combine_gram {dname} n={n}: G is not exactly symmetric")
+            check(rerun, f"combine_gram {dname} n={n}: a rerun gives other bits")
+            if dtype == torch.float32 and n == max(COMBINE_WIDTHS):
+                a64, b64 = r1.double(), r2.double()
+                want = a64.mT @ a64 + b64.mT @ b64
+                e64 = self.rel_err(g.double(), want)
+                p64 = self.rel_err(ref.combine_gram(r1, r2).double(), want)
+                line += f"; vs float64 kernel {e64:.2e} plain {p64:.2e}"
+                check(e64 <= F64_TOL, f"combine_gram n={n}: {e64:.3e} from float64 > {F64_TOL}")
+                self.errors["combine_gram"] = (g - ref.combine_gram(r1, r2)).abs().max().item()
+            log(line)
+        log(f"[combine_gram] launches over {len(inputs)} ops.combine_gram calls: "
+            f"{self.launches['combine_gram']}")
+
+    def combine_gram_timing(self) -> None:
+        """combine_gram at 8 × 512 × 512 (at 8 × 128 its bound is launch
+        overhead).  Operations: two symmetric Grams, n²(n + 1) each, plus n²
+        adds a matrix; bytes: both inputs read and G written once.  No one
+        PyTorch call computes the function; the yardstick is two:
+        ``torch.baddbmm(r2.mT @ r2, r1.mT, r1)``."""
+        torch, ref = self.torch, self.ref
+        n = max(COMBINE_WIDTHS)
+        r1, r2 = (self.randn((P, n, n), 700 + i) for i in (0, 1))
+        two = lambda: torch.baddbmm(r2.mT @ r2, r1.mT, r1)  # noqa: E731
+        two_err = self.rel_err(two(), ref.combine_gram(r1, r2))
+        check(two_err <= TOL["float32"], f"baddbmm yardstick: {two_err:.3e}")
+        row = self.time_row((P, n, n), 4 * P * 3 * n * n, P * (2 * n * n * (n + 1) + n * n),
+                            lambda: self.kernels["combine_gram"](r1, r2),
+                            lambda: ref.combine_gram(r1, r2), None)
+        row["two_calls_ms"] = self.time_ms(two)
+        row["library_note"] = "none: no one call; torch.baddbmm(r2.mT @ r2, r1.mT, r1) is two"
+        self.times[("combine_gram", "8x512")] = row
+        log(f"[time] combine_gram 8x512 {json.dumps(row)}")
+
+    # -- phase 7: the coded scheme -------------------------------------------
+
+    def _ortho(self, q) -> float:
+        torch = self.torch
+        q = q.double()
+        return (torch.einsum("pmi,pmj->ij", q, q)
+                - torch.eye(q.shape[-1], dtype=torch.float64, device=DEVICE)).abs().max().item()
+
+    def _median_ms(self, fn) -> tuple[float, float, float]:
+        """Median, min and max of 5 warm host-clock runs ending in a
+        synchronize."""
+        torch = self.torch
+        samples = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples), min(samples), max(samples)
+
+    def coded_tsqr_path(self) -> None:
+        """Coded TSQR (``local_r="cqr2_pallas"``, c = 3) at powersgd_panel:
+        fault-free R equal to the redundant butterfly's bit for bit, the
+        wire of the collective equal to the plan's, deaths (the gather root
+        among them), stragglers, silent corruption through ``observed=``,
+        an over-budget loss, ``compute_q``; at paper_fig, c = 1..3
+        fault-free equal to the butterfly.  Launches counted from 0."""
+        torch = self.torch
+        from repro_torch.collective import (
+            FaultSpec,
+            InstrumentedComm,
+            SimComm,
+            execute_coded,
+            execute_plan,
+            make_coded_plan,
+            make_plan,
+            reconstruction_tol,
+        )
+        from repro_torch.qr import QRConfig, factorize
+        from repro_torch.qr import tsqr as tsqr_mod
+
+        counts = self.dispatch.launches
+        kern = "cqr2_pallas"
+        coded = QRConfig(local_r=kern, redundancy="coded", parity=CODED_PARITY)
+        fly = QRConfig(local_r=kern)
+        tol = reconstruction_tol(torch.float32)
+        a = self.randn(MAIN_SHAPES[HEADLINE], 1001)
+        small = self.randn(MAIN_SHAPES["paper_fig"], 1000)
+        torch.cuda.synchronize()
+
+        counts.reset()
+        base = factorize(a, fly)
+        res = factorize(a, coded)
+        torch.cuda.synchronize()
+        tag = f"coded {HEADLINE} {tuple(a.shape)} c={CODED_PARITY}"
+        check(torch.equal(res.r, base.r), f"{tag}: fault-free coded R != butterfly R")
+        check(bool(res.valid.all()) and not bool(res.detected.any()),
+              f"{tag}: fault-free valid={res.valid.tolist()} detected={res.detected.tolist()}")
+        log(f"[coded] {tag} fault-free: R == redundant butterfly R bit for bit, all valid, "
+            f"nothing detected")
+        scale = base.r[0].abs().max().item()
+
+        def faulted(label, want_launches, **kw):
+            before = counts.as_dict()
+            out = tsqr_mod._factorize_sim(a, coded, **kw)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in counts.as_dict().items() if v - before[k]}
+            check(delta == want_launches, f"{tag} {label}: launches {delta}, want "
+                  f"{want_launches}")
+            check((out.valid.cpu().numpy() == out.plan.final_valid[:P]).all(),
+                  f"{tag} {label}: validity {out.valid.tolist()} != plan")
+            return out, delta
+
+        one = {"gram": 1, "fused_apply_gram": 1}
+        for label, spec in (("deaths {0, 2, 4} at step 0", FaultSpec.of({0: 0, 2: 0, 4: 0})),
+                            ("stragglers {2, 5}", FaultSpec.of({}, slow=(2, 5)))):
+            out, delta = faulted(label, one, fault_spec=spec)
+            err = max(((out.r[i] - base.r[0]).abs().max() / scale).item() for i in range(P))
+            check(bool(out.valid.all()), f"{tag} {label}: a data rank is invalid")
+            check(err <= tol, f"{tag} {label}: R {err:.3e} from fault-free > {tol:.3e}")
+            check(not bool(out.detected.any()), f"{tag} {label}: detected {out.detected}")
+            log(f"[coded] {tag} {label}: all valid, R rel err vs fault-free {err:.2e} "
+                f"(limit {tol:.2e}) launches {delta}")
+        observed = a.clone()
+        observed[6] *= 3.0
+        out, delta = faulted("SDC on rank 6", {"gram": 2, "fused_apply_gram": 2},
+                             fault_spec=FaultSpec.of({}, corrupt=(6,)), observed=observed)
+        del observed
+        flagged = out.detected.nonzero().flatten().tolist()
+        err = ((out.r[0] - base.r[0]).abs().max() / scale).item()
+        check(flagged == [6], f"{tag} SDC: detected ranks {flagged}, want [6]")
+        check(err <= tol, f"{tag} SDC: R {err:.3e} from fault-free > {tol:.3e}")
+        log(f"[coded] {tag} SDC on rank 6 (observed x3): detected {flagged}, R rel err vs "
+            f"fault-free {err:.2e} launches {delta}")
+        out, delta = faulted("four deaths", one,
+                             fault_spec=FaultSpec.of({0: 0, 1: 0, 3: 0, 5: 0}))
+        check(not bool(out.valid.any()) and bool(torch.isnan(out.r).all()),
+              f"{tag} four deaths: some rank valid or R not NaN")
+        log(f"[coded] {tag} four deaths (budget {CODED_PARITY}): no valid rank, R all NaN "
+            f"launches {delta}")
+        before = counts.as_dict()
+        out = factorize(a, dataclasses.replace(coded, compute_q=True))
+        torch.cuda.synchronize()
+        ortho = self._ortho(out.q)
+        check(ortho <= ORTHO_TOL, f"{tag} compute_q: ||QᵀQ − I|| {ortho:.3e} > {ORTHO_TOL}")
+        delta = {k: v - before[k] for k, v in counts.as_dict().items() if v - before[k]}
+        check(delta == {"gram": 2, "fused_apply_gram": 1}, f"{tag} compute_q: launches {delta}")
+        log(f"[coded] {tag} compute_q: ||QᵀQ−I||={ortho:.2e} launches {delta}")
+        del out
+        for c in (1, 2, 3):
+            got = factorize(small, QRConfig(local_r=kern, redundancy="coded", parity=c))
+            want = factorize(small, fly)
+            check(torch.equal(got.r, want.r), f"coded paper_fig c={c}: R != butterfly R")
+        log(f"[coded] paper_fig {tuple(small.shape)} c=1..3 fault-free: R == redundant "
+            f"butterfly R bit for bit")
+        self.launches["coded"] = counts.as_dict()
+        log(f"[coded] launches over the coded TSQR runs: {self.launches['coded']}")
+
+        # the collective's wire, observed against each plan
+        pf = coded.factorizer()
+        plan = make_coded_plan(P, CODED_PARITY)
+        comm = InstrumentedComm(SimComm(plan.n_ranks, a.device))
+        execute_coded(a, comm, plan, pf.combiner())
+        fly_comm = InstrumentedComm(SimComm(P, a.device))
+        execute_plan(a, fly_comm, make_plan("redundant", P), pf.combiner())
+        unit = a.shape[-1] ** 2 * 4
+        units = comm.stats.payload_bytes // unit
+        check((comm.stats.messages, units) == (plan.message_count(), plan.payload_units()),
+              f"coded wire: {comm.stats.messages} messages, {units} units; plan "
+              f"{plan.message_count()}, {plan.payload_units()}")
+        check(comm.stats.payload_bytes == plan.bytes_on_wire(a.shape[-1]), "coded wire bytes")
+        log(f"[coded] wire at c={CODED_PARITY}: {comm.stats.messages} messages, {units} payload "
+            f"units, {comm.stats.payload_bytes} B (plan {plan.message_count()}, "
+            f"{plan.payload_units()}); redundant butterfly {fly_comm.stats.messages} messages, "
+            f"{fly_comm.stats.payload_bytes} B")
+
+        self.profile(f"coded TSQR {HEADLINE} {tuple(a.shape)} c={CODED_PARITY}",
+                     lambda: factorize(a, coded))
+        for name, x in ((HEADLINE, a), ("paper_fig", small)):
+            for label, cfg, faults in (
+                    ("redundant butterfly", fly, None),
+                    ("redundant butterfly, rank 5 dead at exchange 1", fly,
+                     FaultSpec.of({5: 1})),
+                    (f"coded c={CODED_PARITY}", coded, None),
+                    (f"coded c={CODED_PARITY}, ranks 0, 2, 4 dead", coded,
+                     FaultSpec.of({0: 0, 2: 0, 4: 0}))):
+                med, lo, hi = self._median_ms(lambda: factorize(x, cfg, faults=faults))
+                log(f"[e2e] coded-vs-butterfly TSQR {name} {tuple(x.shape)} {label}: median "
+                    f"{med:.3f} ms (min {lo:.3f}, max {hi:.3f}, 5 runs)")
+
+    def coded_blocked_path(self) -> None:
+        """The coded blocked QR at general_full (c = 2, ``use_pallas``):
+        fault-free R equal to the eager butterfly driver's bit for bit (as
+        in the reference), a panel-phase death of two ranks, an
+        update-phase death, a declared-corrupt rank; validity as the plans
+        give it, R against the float64 Householder R, ``detected`` all
+        False (nothing is perturbed), the eager driver's launches."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.collective import FaultSpec
+        from repro_torch.qr import PanelFaultSchedule, QRConfig, factorize
+
+        counts = self.dispatch.launches
+        a, truth = self.blocked_full
+        cfg = QRConfig(panel_width=PANEL, use_pallas=True, redundancy="coded",
+                       parity=BLOCKED_PARITY)
+        eager = QRConfig(panel_width=PANEL, use_pallas=True, pipeline="off")
+        schedules = {
+            None: None,
+            "panel {1: ranks 3, 6 dead}": PanelFaultSchedule.of(panel={1: {3: 0, 6: 0}}),
+            "update {0: rank 5 dead at 1}": PanelFaultSchedule.of(update={0: {5: 1}}),
+            "panel {0: rank 2 declared corrupt}": PanelFaultSchedule.of(
+                panel={0: FaultSpec.of({}, corrupt=(2,))}),
+        }
+        base = factorize(a, eager)
+        torch.cuda.synchronize()
+        counts.reset()
+        for label, sched in schedules.items():
+            before = counts.as_dict()
+            res = factorize(a, cfg, faults=sched)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in counts.as_dict().items()}
+            tag = f"coded blocked general_full {tuple(a.shape)} c={BLOCKED_PARITY} " \
+                  f"faults={label}"
+            k_panels = res.n_panels
+            want = dict.fromkeys(delta, 0)
+            want.update(panel_cross=1, trailing_update=k_panels - 1, gram=k_panels)
+            check(delta == want, f"{tag}: launches {delta}, want {want}")
+            expect = np.ones(P, bool)
+            for rep in res.reports:
+                for plan in (rep.plan_r, rep.plan_w):
+                    if plan is not None:
+                        expect &= plan.final_valid[:P]
+            valid = res.valid.cpu().numpy()
+            check((valid == expect).all() and expect.all(),
+                  f"{tag}: validity {valid} != plans {expect}")
+            check(not bool(res.detected.any()), f"{tag}: detected {res.detected.tolist()}")
+            err = max(((res.r[i].double() - truth).abs().max() / truth.abs().max()).item()
+                      for i in range(P))
+            check(err <= R_TOL, f"{tag}: R rel err {err:.3e} > {R_TOL}")
+            line = f"[coded blocked] {tag} all valid, nothing detected, R rel err {err:.2e}"
+            if sched is None:
+                check(torch.equal(res.r, base.r), f"{tag}: R != eager butterfly R")
+                line += ", == eager butterfly bit for bit"
+            log(line + f" launches {({k: v for k, v in delta.items() if v})}")
+        self.launches["coded_blocked"] = counts.as_dict()
+        log(f"[coded blocked] launches over {len(schedules)} factorizations: "
+            f"{self.launches['coded_blocked']}")
+        self.profile(f"coded blocked general_full {tuple(a.shape)} c={BLOCKED_PARITY}",
+                     lambda: factorize(a, cfg))
+        for label, c, faults in (
+                ("butterfly, eager", eager, None),
+                ("butterfly, pipeline", QRConfig(panel_width=PANEL, use_pallas=True), None),
+                ("butterfly, eager, panel {1: rank 5 dead at 1}", eager,
+                 PanelFaultSchedule.of(panel={1: {5: 1}})),
+                (f"coded c={BLOCKED_PARITY}", cfg, None),
+                (f"coded c={BLOCKED_PARITY}, panel {{1: ranks 3, 6 dead}}", cfg,
+                 schedules["panel {1: ranks 3, 6 dead}"])):
+            med, lo, hi = self._median_ms(lambda: factorize(a, c, faults=faults))
+            log(f"[e2e] coded-vs-butterfly blocked general_full {tuple(a.shape)} {label}: "
+                f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, 5 runs)")
+
+    def scenarios(self) -> None:
+        """The stock collective and blocked fault scenarios on the card,
+        with their guarantee fields checked."""
+        from repro_torch.bench.scenarios import get_scenarios, run_scenario
+
+        guarantees = ("values_match", "survived", "corruption_detected",
+                      "honest_degradation", "wire_matches_plan", "survivors_match_plan")
+        for sc in get_scenarios():
+            metrics = run_scenario(sc, seed=0, device=DEVICE)
+            for key in guarantees:
+                if key in metrics:
+                    check(metrics[key].value is True, f"scenario {sc.name}: {key} is "
+                          f"{metrics[key].value}")
+            log(f"[scenario] {sc.name} ({sc.kind}): " + json.dumps(
+                {k: m.value for k, m in metrics.items()}))
+
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over
         the call, the device-time sums by kernel, and the device's busy
@@ -679,7 +1020,7 @@ class Smoke:
         for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
             log(f"[profile]   {t:10.0f} us  x{count:<4d} {key[:90]}")
 
-    # -- phase 5: kernel times ------------------------------------------------
+    # -- phase 8: kernel times ------------------------------------------------
 
     def timings(self) -> None:
         torch = self.torch
@@ -809,6 +1150,7 @@ class Smoke:
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": t["shape"],
+                **{k: t[k] for k in ("two_calls_ms", "library_note") if k in t},
             })
         return rows
 

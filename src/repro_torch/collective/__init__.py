@@ -5,7 +5,7 @@ paper's 2^s − 1 tolerance accounting (:mod:`.faults`), host-side routing
 for the four variants (:mod:`.plan`), the combine algebra
 (:mod:`.combiners`), the simulated-ranks backend (:mod:`.comm`), and the
 plan executor with validity threading and self-healing restores
-(:mod:`.engine`).
+(:mod:`.engine`), and checksum-coded redundancy (:mod:`.coded`).
 """
 from .combiners import (
     COMBINERS,
@@ -20,6 +20,16 @@ from .combiners import (
     posdiag,
     qr_r,
     stacked,
+)
+from .coded import (
+    CodedCombiner,
+    CodedPlan,
+    coded_allreduce,
+    coded_weights,
+    encode_parity,
+    execute_coded,
+    make_coded_plan,
+    reconstruction_tol,
 )
 from .comm import Comm, SimComm
 from .engine import (
@@ -42,6 +52,8 @@ from .plan import VARIANTS, Plan, Step, ilog2, leaf_bytes, make_plan, payload_nu
 
 __all__ = [
     "COMBINERS",
+    "CodedCombiner",
+    "CodedPlan",
     "Comm",
     "CommStats",
     "Combiner",
@@ -58,16 +70,22 @@ __all__ = [
     "Step",
     "SumCombiner",
     "VARIANTS",
+    "coded_allreduce",
+    "coded_weights",
+    "encode_parity",
+    "execute_coded",
     "execute_plan",
     "ft_allreduce",
     "get_combiner",
     "ilog2",
     "leaf_bytes",
+    "make_coded_plan",
     "make_plan",
     "pack_sym",
     "payload_numel",
     "posdiag",
     "qr_r",
+    "reconstruction_tol",
     "recover_payload",
     "replica_fetch",
     "sample_within_tolerance",

@@ -189,14 +189,27 @@ def replica_fetch(x, comm: Comm, valid) -> object:
 
 
 def recover_payload(x, comm: Comm, valid, *, plan=None) -> object:
-    """Phase-boundary recovery for butterfly plans: invalid ranks fetch the
-    reduced value from donors (:func:`replica_fetch`).  The coded scheme's
-    branch waits for the coded planner's port (ROADMAP A.8)."""
-    if plan is not None and not isinstance(plan, Plan):
-        raise NotImplementedError(
-            f"recover_payload supports butterfly plans only, got "
-            f"{type(plan).__name__}; the coded scheme is ROADMAP A.8"
-        )
+    """Phase-boundary recovery, by scheme.
+
+    * Butterfly plans (or no plan): invalid ranks fetch the reduced value
+      from donors (:func:`replica_fetch`).
+    * Coded plans (:class:`~repro_torch.collective.coded.CodedPlan`): the
+      erased contributions were already reconstructed from parity inside
+      the collective and the broadcast reached every data rank, so nothing
+      is left to fetch.  An invalid data rank here means the erasure budget
+      was exceeded; parity is not a replica, so that raises ``ValueError``.
+    """
+    from .coded import CodedPlan  # local: coded imports this module
+
+    if isinstance(plan, CodedPlan):
+        valid = np.asarray(valid, dtype=bool)
+        if not valid[: plan.n_data].all():
+            raise ValueError(
+                "recover_payload: coded recovery happens in-collective; "
+                "invalid data ranks after a coded reduce mean the erasure "
+                "budget was exceeded and no donor path exists"
+            )
+        return x
     return replica_fetch(x, comm, valid)
 
 

@@ -42,7 +42,7 @@ class FaultSpec:
     ``deaths`` are fail-stop ``(rank, death_step)`` pairs — each rank dies at
     most once; ``death_step`` is the exchange index at whose *entry* the rank
     fails (0-based).  Two further fault kinds exist for schemes that can act
-    on them (the coded-redundancy planner, not yet ported):
+    on them (the coded-redundancy planner, :mod:`.coded`):
 
       * ``corrupt`` — ranks whose payload suffers silent data corruption
         (SDC): the rank participates normally and does not know it is wrong.

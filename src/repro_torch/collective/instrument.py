@@ -11,7 +11,11 @@ Accounting note: the *general* executor exchanges ``(payload, validity)``
 pairs, so observed bytes include one validity byte (bool) per message on
 top of the payload.  The fault-free fast path ships the payload alone.
 Symmetric combiners (``gram_sum``) pack to the n(n+1)/2 triangle on either
-path.
+path.  A coded reduction ships no validity byte: each of its phases is its
+own exchange, and the gather's reconstruction lanes ride beside the result,
+so the counters equal :meth:`~repro_torch.collective.coded.CodedPlan.
+message_count` and :meth:`~repro_torch.collective.coded.CodedPlan.
+bytes_on_wire` (``_stacked``) exactly.
 """
 from __future__ import annotations
 

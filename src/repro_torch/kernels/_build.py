@@ -48,6 +48,7 @@ KERNELS: dict[str, tuple[str, list]] = {
     "pad_cross": (
         "repro_pad_cross", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     ),
+    "combine_gram": ("repro_combine_gram", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,6 +1,6 @@
 """Argument checks, row splits and launch plumbing shared by the kernel
 wrappers (``gram``, ``fused_apply_gram``, ``apply_right``,
-``trailing_update``, ``panel_cross``, ``pad_cross``)."""
+``trailing_update``, ``panel_cross``, ``pad_cross``, ``combine_gram``)."""
 from __future__ import annotations
 
 import math

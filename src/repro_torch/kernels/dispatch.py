@@ -26,6 +26,7 @@ class LaunchCounts:
     trailing_update: int = 0
     panel_cross: int = 0
     pad_cross: int = 0
+    combine_gram: int = 0
 
     def reset(self) -> None:
         for field in dataclasses.fields(self):

@@ -1,5 +1,5 @@
-"""Public wrappers over the Hopper kernels, the CholeskyQR2 pipeline and the
-blocked QR's trailing-block sweeps.
+"""Public wrappers over the Hopper kernels, the CholeskyQR2 pipeline, the
+blocked QR's trailing-block sweeps and the Gram-combine of two R factors.
 
 ``cholesky_qr2`` is the local QR of the TSQR variants: two rounds of (Gram
 → n×n Cholesky → triangular inverse → panel product).  The pipeline is
@@ -26,6 +26,7 @@ import torch
 from . import ref as _ref
 from . import traffic as _traffic
 from .apply_right import apply_right as _apply_kernel
+from .combine_gram import combine_gram as _combine_kernel
 from .fused_apply_gram import fused_apply_gram as _fused_kernel
 from .gram import gram as _gram_kernel
 from .trailing_update import pad_cross as _pad_cross_kernel
@@ -43,6 +44,7 @@ __all__ = [
     "trailing_update",
     "panel_cross",
     "pad_cross",
+    "combine_gram",
 ]
 
 
@@ -80,6 +82,16 @@ def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
     q_bytes = _nbytes(out[0]) if want_q else 0
     _traffic.note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
                   write_bytes=q_bytes + _nbytes(g_out))
+    return out
+
+
+def combine_gram(r1, r2, *, use_pallas: bool = False):
+    """``G = R1ᵀR1 + R2ᵀR2`` in float32 for two (…, n, n) factors: the
+    Gram-butterfly's combine.  Recorded as the reference records it: no
+    sweep, reading both factors and writing G."""
+    out = _combine_kernel(r1, r2) if use_pallas else _ref.combine_gram(r1, r2)
+    _traffic.note("combine_gram", read_bytes=_nbytes(r1) + _nbytes(r2),
+                  write_bytes=_nbytes(out))
     return out
 
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the CholeskyQR2 and blocked-QR kernels.
+"""Plain PyTorch versions of the CholeskyQR2, blocked-QR and Gram-combine
+kernels.
 
 The CPU tests run these, a kernel wrapper takes one only for a tensor on the
 CPU, and the card checks compare each kernel against its version here.
@@ -19,6 +20,7 @@ __all__ = [
     "trailing_update",
     "panel_cross",
     "pad_cross",
+    "combine_gram",
 ]
 
 
@@ -62,6 +64,11 @@ def pad_cross(a: torch.Tensor, *, split: int, out_width: int):
     :func:`panel_cross` of the widened copy."""
     a_pad = torch.nn.functional.pad(a, (0, out_width - a.shape[-1]))
     return a_pad, panel_cross(a_pad, split=split)
+
+
+def combine_gram(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """G = R1ᵀR1 + R2ᵀR2 in float32: the Gram-combine of two factors."""
+    return gram(r1) + gram(r2)
 
 
 def _posdiag(r: torch.Tensor) -> torch.Tensor:

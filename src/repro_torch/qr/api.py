@@ -11,10 +11,12 @@ config transfers one to one.  :func:`factorize` routes by input rank:
                       per kernel             pipeline, one launch per sweep
   ==================  =====================  ==============================
 
-All P ranks are simulated on one device.  Routes that wait for later slices
-raise ``NotImplementedError`` naming their ROADMAP item: meshes (``mesh=``,
-A.3), the Gram butterfly (``gram=True``, A.3) and coded redundancy
-(``redundancy="coded"``, A.8).
+All P ranks are simulated on one device.  ``redundancy="coded"`` adds
+``parity`` checksum ranks (:mod:`repro_torch.collective.coded`) to the 3-D
+routes; like the reference, it refuses batches and meshes with
+``ValueError``.  Routes that wait for later slices raise
+``NotImplementedError`` naming their ROADMAP item: meshes (``mesh=``, A.3)
+and the Gram butterfly (``gram=True``, A.3).
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none; pass ``device="cpu"`` to run on the CPU (the kernels'
@@ -87,7 +89,7 @@ class Recover(_CoercibleEnum):
 
 class Redundancy(_CoercibleEnum):
     """Which fault-tolerance scheme backs the panel reductions: the paper's
-    butterfly replicas, or checksum coding (not yet ported)."""
+    butterfly replicas, or checksum coding."""
 
     BUTTERFLY = "butterfly"
     CODED = "coded"
@@ -243,6 +245,15 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
             f"{type(config).__name__} — construct one (all fields have "
             "defaults) rather than passing loose kwargs"
         )
+    coded = config.redundancy is Redundancy.CODED
+    if mesh is not None and coded:
+        raise ValueError(
+            "redundancy='coded' is a simulated-ranks scheme: the coded "
+            "world holds P data ranks plus `parity` checksum ranks, and "
+            "the decode indexes the gather root's row — neither maps "
+            "onto the fixed-size shard_map mesh; run the 3-D simulated "
+            "entry (or redundancy='butterfly' under the mesh)"
+        )
     if mesh is not None or axis is not None:
         raise NotImplementedError(
             "mesh= runs the ranks as separate processes, which waits for "
@@ -252,10 +263,6 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
         raise NotImplementedError(
             "gram=True (the Gram-butterfly TSQR) is a mesh-only driver, which "
             "waits for DistComm (ROADMAP A.3)"
-        )
-    if config.redundancy is Redundancy.CODED:
-        raise NotImplementedError(
-            "redundancy='coded' waits for the coded planner's port (ROADMAP A.8)"
         )
     tsqr_mode = config.panel_width is None
     want = FaultSpec if tsqr_mode else _blocked.PanelFaultSchedule
@@ -270,6 +277,13 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
             f"cannot route input of shape {getattr(a, 'shape', None)}: "
             "factorize expects (P, m_local, n) row blocks or a batched "
             "(B, P, m_local, n) stack"
+        )
+    if ndim == 4 and coded:
+        raise ValueError(
+            "batched factorization is the fault-free hot path, where "
+            "coded parity buys nothing over the plain butterfly; use "
+            "redundancy='butterfly' for batches, or factor matrices "
+            "one at a time through the 3-D entry for coded runs"
         )
     if ndim == 4 and faults is not None:
         raise ValueError(

@@ -38,8 +38,16 @@ Two drivers, equal bit for bit on fault-free plans:
     so the shift left costs no copy.  Fault-free runs take it under
     ``pipeline="auto"``; the 4-D batched route always does.
 
+With ``redundancy="coded"`` every panel reduction is a checksum-coded one
+over the P data ranks plus ``parity`` checksum ranks (a per-panel
+:class:`~repro_torch.collective.coded.CodedPlan` for R and for W): erased
+contributions are reconstructed inside the collective, every data rank
+receives the result, and ``detected`` ORs the panels' verification flags.
+Coded runs always take the eager driver; the sweeps stay at P blocks and
+only the reductions run over the ``P + parity`` world.
+
 The reference's ``lax.scan`` becomes a Python loop over the same fixed
-shapes; ``ShardMapComm`` and the coded scheme wait for later slices.
+shapes; ``ShardMapComm`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch.collective._tree import tree_map
+from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
 from repro_torch.collective.comm import Comm, SimComm
 from repro_torch.collective.engine import ft_allreduce, recover_payload
 from repro_torch.collective.faults import FaultSpec, within_tolerance
@@ -57,8 +67,8 @@ from repro_torch.collective.plan import Plan, make_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import traffic as _traffic
 
-from .api import Fuse, Pipeline, QRConfig, Recover
-from .panel import PanelFactorizer, chol_r
+from .api import Fuse, Pipeline, QRConfig, Recover, Redundancy
+from .panel import FUSED_PANEL_COMBINER, PanelFactorizer, chol_r
 
 __all__ = ["BlockedQRResult", "PanelFaultSchedule", "PanelReport", "panel_widths"]
 
@@ -110,11 +120,15 @@ class PanelReport:
     lookahead accumulators and consumed one stage later.  A panel with an
     update-phase fault cannot fuse: the death indexes the second
     butterfly's exchanges.
+
+    ``scheme`` — ``"butterfly"``: ``recovered_*`` counts ranks that fetch
+    full replicas at the phase boundary; ``"coded"``: it counts the erased
+    contributions reconstructed from parity inside the collective.
     """
 
     panel: int
-    plan_r: Plan
-    plan_w: Plan | None
+    plan_r: Plan | CodedPlan
+    plan_w: Plan | CodedPlan | None
     within_tolerance_r: bool
     within_tolerance_w: bool
     recovered_r: int          # contributions restored after phase 1
@@ -138,7 +152,8 @@ class BlockedQRResult:
                   panel's reductions without replica recovery.
     ``q``       — optional per-rank (m_local, n) orthonormal factor.
     ``reports`` — per-panel :class:`PanelReport`.
-    ``detected``— the coded scheme's flags; always None in this port.
+    ``detected``— coded runs only: (P,) device bool, OR over all panels,
+                  flagging ranks whose payload failed checksum verification.
     """
 
     r: torch.Tensor
@@ -157,14 +172,22 @@ class BlockedQRResult:
         return all(rep.recoverable for rep in self.reports)
 
 
+def _data_valid(plan) -> np.ndarray:
+    """The data ranks' slice of ``final_valid`` (a coded plan appends its
+    parity ranks, which the driver's validity logic must not see)."""
+    return plan.final_valid[: getattr(plan, "n_data", plan.n_ranks)]
+
+
 # ---------------------------------------------------------------------------
 # Host-side planning
 # ---------------------------------------------------------------------------
 
 def _build_reports(variant: str, p: int, widths: tuple[int, ...],
-                   faults: PanelFaultSchedule, recover: Recover,
-                   fuse: Fuse) -> tuple[PanelReport, ...]:
+                   faults: PanelFaultSchedule, recover: Recover, fuse: Fuse,
+                   redundancy: Redundancy = Redundancy.BUTTERFLY,
+                   parity: int = 2) -> tuple[PanelReport, ...]:
     n_panels = len(widths)
+    coded = redundancy is Redundancy.CODED
     for key in set(faults.panel) | set(faults.update):
         if not 0 <= key < n_panels:
             raise ValueError(
@@ -178,32 +201,39 @@ def _build_reports(variant: str, p: int, widths: tuple[int, ...],
     reports = []
     for k in range(n_panels):
         spec_r = faults.panel.get(k, FaultSpec.none())
-        last = k == n_panels - 1
-        plan_w = None
-        tol_w = True
+        spec_w = None if k == n_panels - 1 else faults.update.get(k, FaultSpec.none())
         # fuse unless the schedule pins a death to the second butterfly
-        fused = fuse is not Fuse.OFF and (last or k not in faults.update)
-        plan_r = make_plan(variant, p, spec_r)
-        tol_r = within_tolerance(variant, spec_r, plan_r.n_steps)
-        if not last:
-            spec_w = faults.update.get(k, FaultSpec.none())
-            plan_w = make_plan(variant, p, spec_w)
-            tol_w = within_tolerance(variant, spec_w, plan_w.n_steps)
-        recoverable = bool(plan_r.final_valid.any()) and (
-            plan_w is None or bool(plan_w.final_valid.any())
-        )
-        # recovered_* counts the ranks a replica fetch restores (zero when
-        # recovery is off: the ranks stay poisoned)
-        fetching = recover is Recover.REPLICA and recoverable
-        rec_r = int((~plan_r.final_valid).sum()) if fetching else 0
-        if fused and plan_w is not None:
-            rec_w = rec_r          # one stacked fetch restores both leaves
+        fused = fuse is not Fuse.OFF and k not in faults.update
+        if coded:
+            # a per-panel coded plan over P + parity ranks: within tolerance
+            # is the erasure budget, and recovered_* counts the
+            # contributions reconstructed in-collective
+            plan_r = make_coded_plan(p, parity, spec_r)
+            plan_w = None if spec_w is None else make_coded_plan(p, parity, spec_w)
+            tol_r = plan_r.recoverable
+            tol_w = plan_w is None or plan_w.recoverable
+            recoverable = tol_r and tol_w
+            rec_r = plan_r.n_erased if tol_r else 0
+            rec_w = plan_w.n_erased if plan_w is not None and tol_w else 0
         else:
+            plan_r = make_plan(variant, p, spec_r)
+            plan_w = None if spec_w is None else make_plan(variant, p, spec_w)
+            tol_r = within_tolerance(variant, spec_r, plan_r.n_steps)
+            tol_w = plan_w is None or within_tolerance(variant, spec_w, plan_w.n_steps)
+            recoverable = bool(plan_r.final_valid.any()) and (
+                plan_w is None or bool(plan_w.final_valid.any())
+            )
+            # recovered_* counts the ranks a replica fetch restores (zero
+            # when recovery is off: the ranks stay poisoned)
+            fetching = recover is Recover.REPLICA and recoverable
+            rec_r = int((~plan_r.final_valid).sum()) if fetching else 0
             rec_w = int((~plan_w.final_valid).sum()) if fetching and plan_w is not None else 0
+        if fused and plan_w is not None:
+            rec_w = rec_r          # one stacked reduction restores both leaves
         reports.append(PanelReport(
             panel=k, plan_r=plan_r, plan_w=plan_w, within_tolerance_r=tol_r,
             within_tolerance_w=tol_w, recovered_r=rec_r, recovered_w=rec_w,
-            recoverable=recoverable, fused=fused,
+            recoverable=recoverable, fused=fused, scheme="coded" if coded else "butterfly",
         ))
     if fuse is Fuse.ON:
         bad = [r.panel for r in reports if not r.fused]
@@ -265,14 +295,29 @@ def _assemble(rows, r_last, n: int, b: int, like):
 # ---------------------------------------------------------------------------
 
 def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple[int, ...],
-                  pf: PanelFactorizer, *, local_r: str, compute_q: bool, use_pallas: bool):
+                  pf: PanelFactorizer, *, local_r: str, compute_q: bool, use_pallas: bool,
+                  world: Comm | None = None):
+    """The eager driver.  ``world`` (the P + parity ranks) makes every
+    reduction a coded one; the sweeps, Q and the polish stay on ``comm``."""
     n = a.shape[-1]
     n_pad = widths[0] * len(widths)
     r_full = torch.zeros(a.shape[:-2] + (n, n), dtype=torch.float32, device=a.device)
     valid = comm.take(np.ones(comm.n_ranks, dtype=bool))
+    coded = world is not None
+    detected = torch.zeros_like(valid) if coded else None
     q_cols = []
     trail = a
     s = kops.panel_cross(a, split=widths[0], use_pallas=use_pallas)      # prime
+
+    def coded_reduce(payload, plan, combiner):
+        p = comm.n_ranks
+        val, fv, det = execute_coded(payload, world, plan, combiner)
+        return tree_map(lambda t: t[:p], val), fv[:p], det[:p]
+
+    def reduce_r(r_loc, plan):
+        if coded:
+            return coded_reduce(r_loc, plan, FUSED_PANEL_COMBINER.parts[0])
+        return (*pf.reduce_r_prepared(r_loc, comm, plan), None)
 
     def issue(rep, panel, g_loc, c_loc):
         """Put a fused panel's single butterfly on the wire: the stacked
@@ -280,10 +325,14 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
         right after the sweep that produced the lookahead accumulators."""
         r_loc = _local_r(pf, local_r, panel, g_loc)
         if rep.plan_w is None:
-            r_kk, valid_r = pf.reduce_r_prepared(r_loc, comm, rep.plan_r)
-            return r_kk, None, valid_r
+            r_kk, valid_r, det = reduce_r(r_loc, rep.plan_r)
+            return r_kk, None, valid_r, det
+        if coded:
+            (r_kk, c_sum), v, det = coded_reduce((r_loc, c_loc), rep.plan_r,
+                                                 FUSED_PANEL_COMBINER)
+            return r_kk, c_sum, v, det
         (r_kk, c_sum), v = pf.reduce_panel_fused(r_loc, c_loc, comm, rep.plan_r)
-        return r_kk, c_sum, v
+        return r_kk, c_sum, v, None
 
     pending = None
     if reports[0].fused:
@@ -295,14 +344,18 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
         panel = trail[..., :, :b]
         # -- phase 1: panel reduction(s) over the butterfly -----------------
         if rep.fused:
-            r_kk, c_sum, valid_r = pending
+            r_kk, c_sum, valid_r, det = pending
             pending = None
         else:
             r_loc = _local_r(pf, local_r, panel, s[..., :, :b])
-            r_kk, valid_r = pf.reduce_r_prepared(r_loc, comm, rep.plan_r)
+            r_kk, valid_r, det = reduce_r(r_loc, rep.plan_r)
             c_sum = None
         valid = valid & valid_r
+        if det is not None:
+            detected = detected | det
         if rep.recovered_r:
+            # a coded plan reconstructed in-collective: this only checks
+            # that the erasure budget held
             if c_sum is not None:
                 # one fetch restores both stacked leaves
                 r_kk, c_sum = recover_payload(
@@ -313,7 +366,7 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
         # The polish's Gram all-reduce mixes every rank's contribution, so a
         # no-recovery run that left poisoned ranks skips it: survivors keep
         # their exact unpolished factor instead of inheriting the NaN.
-        clean = bool(rep.plan_r.final_valid.all()) or bool(rep.recovered_r)
+        clean = bool(_data_valid(rep.plan_r).all()) or bool(rep.recovered_r)
         pf_k = pf if clean else dataclasses.replace(pf, reorth=0)
         q_k, r_tot = _form_q(pf_k, panel, r_kk, comm, a.dtype)
         if compute_q:
@@ -325,7 +378,12 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
         if not rep.fused:
             # split schedule: a second, serialized sum butterfly over its own
             # plan (update-phase deaths strike here)
-            c_sum, valid_w = ft_allreduce(s[..., :, b:], comm, op="sum", plan=rep.plan_w)
+            if coded:
+                c_sum, valid_w, det_w = coded_reduce(s[..., :, b:], rep.plan_w,
+                                                     FUSED_PANEL_COMBINER.parts[1])
+                detected = detected | det_w
+            else:
+                c_sum, valid_w = ft_allreduce(s[..., :, b:], comm, op="sum", plan=rep.plan_w)
             valid = valid & valid_w
             if rep.recovered_w:
                 c_sum = recover_payload(c_sum, comm, rep.plan_w.final_valid, plan=rep.plan_w)
@@ -341,7 +399,7 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
             pending = issue(nxt, trail[..., :, :b2], s[..., :, :b2], s[..., :, b2:])
         c0 += b
     q = torch.cat(q_cols, dim=-1) if compute_q else None
-    return r_full, valid, q
+    return r_full, valid, q, detected
 
 
 # ---------------------------------------------------------------------------
@@ -512,11 +570,12 @@ def _note_eager_reductions(reports, widths, n: int, pf: PanelFactorizer) -> None
         c_widths.append(n - c0 - b)
         c0 += b
     reorth_counts = tuple(
-        pf.reorth if bool(rep.plan_r.final_valid.all()) or rep.recovered_r else 0
+        pf.reorth if bool(_data_valid(rep.plan_r).all()) or rep.recovered_r else 0
         for rep in reports
     )
+    plan0 = reports[0].plan_r
     _note_reductions(reports, widths, tuple(c_widths), reorth_counts,
-                     make_plan("redundant", reports[0].plan_r.n_ranks))
+                     make_plan("redundant", getattr(plan0, "n_data", plan0.n_ranks)))
 
 
 def _note_pipeline(shape, dtype, widths, reports, reorth: int) -> None:
@@ -559,7 +618,7 @@ def _setup(m_local: int, n: int, p: int, config: QRConfig, faults: PanelFaultSch
             "or use fewer ranks"
         )
     reports = _build_reports(config.variant, p, widths, faults or PanelFaultSchedule(),
-                             config.recover, config.fuse)
+                             config.recover, config.fuse, config.redundancy, config.parity)
     return widths, reports, config.factorizer()
 
 
@@ -579,21 +638,25 @@ def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
                    faults: PanelFaultSchedule | None = None) -> BlockedQRResult:
     """``a_blocks`` is (P, m_local, n) on the target device.  Fault-free
     plans take the fixed-shape pipeline per ``config.pipeline``; faulty
-    plans the eager driver."""
+    plans and every coded run the eager driver (the pipeline's one-plan
+    butterfly schedule is replica redundancy only)."""
     p, m_local, n = a_blocks.shape
     widths, reports, pf = _setup(m_local, n, p, config, faults)
     comm = SimComm(p, a_blocks.device)
-    if _resolve_pipeline(config.pipeline, reports):
+    coded = config.redundancy is Redundancy.CODED
+    detected = None
+    if not coded and _resolve_pipeline(config.pipeline, reports):
         r, valid, q = _run_pipeline(a_blocks, comm, widths, reports, pf, config,
                                     a_blocks.shape)
     else:
-        r, valid, q = _blocked_body(
+        r, valid, q, detected = _blocked_body(
             a_blocks, comm, reports, widths, pf, local_r=config.resolved_local_r(),
             compute_q=config.compute_q, use_pallas=config.use_pallas,
+            world=SimComm(p + config.parity, a_blocks.device) if coded else None,
         )
         _note_eager_reductions(reports, widths, n, pf)
     return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,
-                           panel_width=config.panel_width)
+                           panel_width=config.panel_width, detected=detected)
 
 
 def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResult:

@@ -14,6 +14,12 @@ four variants:
 All P ranks live on one device with a leading (P,) axis
 (:class:`~repro_torch.collective.comm.SimComm`), so each CholeskyQR2 sweep
 is one kernel launch for every rank.
+
+``redundancy="coded"`` replaces the butterfly by the checksum-coded
+reduction (:mod:`repro_torch.collective.coded`): ``parity`` checksum ranks
+join the P data ranks, and up to ``parity`` dead, straggling or corrupted
+contributions are reconstructed from parity inside the collective, with
+declared corruptions verified (``detected``).
 """
 from __future__ import annotations
 
@@ -21,11 +27,12 @@ import dataclasses
 
 import torch
 
+from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
 from repro_torch.collective.comm import SimComm
 from repro_torch.collective.faults import FaultSpec
 from repro_torch.collective.plan import Plan, make_plan
 
-from .api import QRConfig
+from .api import QRConfig, Redundancy, _as_tensor
 
 __all__ = ["TSQRResult"]
 
@@ -37,13 +44,18 @@ class TSQRResult:
     ``r``        — (P, n, n), or (B, P, n, n) for a batch.
     ``valid``    — who holds a correct final R (the paper's semantics).
     ``q``        — optional per-rank (m_local, n) orthonormal factor.
-    ``plan``     — the communication plan that was executed.
+    ``plan``     — the communication plan that was executed: a butterfly
+                   :class:`~repro_torch.collective.plan.Plan` or a
+                   :class:`~repro_torch.collective.coded.CodedPlan`.
+    ``detected`` — coded runs only: (P,) device bool flagging ranks whose
+                   payload failed checksum verification.
     """
 
     r: torch.Tensor
     valid: torch.Tensor
     q: torch.Tensor | None
-    plan: Plan
+    plan: Plan | CodedPlan
+    detected: torch.Tensor | None = None
 
 
 def _check_compute_q(config: QRConfig, plan: Plan) -> None:
@@ -55,9 +67,48 @@ def _check_compute_q(config: QRConfig, plan: Plan) -> None:
         )
 
 
+def _factorize_sim_coded(a_blocks: torch.Tensor, config: QRConfig, fault_spec,
+                         observed) -> TSQRResult:
+    """Checksum-coded TSQR: ``config.parity`` checksum ranks beside the P
+    data blocks; the local QR runs on the P data blocks in one launch per
+    sweep (``observed`` adds a second one: its blocks are what the data
+    ranks contribute, while parity encodes ``a_blocks``)."""
+    p = a_blocks.shape[0]
+    plan = make_coded_plan(p, config.parity, fault_spec)
+    if config.compute_q and not plan.final_valid[:p].all():
+        raise ValueError(
+            "compute_q requires every data rank to end valid; this fault "
+            f"spec exceeds the coded erasure budget (c={config.parity}) — "
+            f"final_valid={plan.final_valid[:p]}"
+        )
+    pf = config.factorizer()
+    world = SimComm(plan.n_ranks, a_blocks.device)
+    if observed is not None:
+        observed = _as_tensor(observed, a_blocks.device)
+    val, fv, det = execute_coded(a_blocks, world, plan, pf.combiner(), observed=observed)
+    r, valid, detected = val[:p], fv[:p], det[:p]
+    q = None
+    if config.compute_q:
+        q, r = pf.form_q(a_blocks, r, SimComm(p, a_blocks.device))
+    return TSQRResult(r=r, valid=valid, q=q, plan=plan, detected=detected)
+
+
 def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
-                   fault_spec: FaultSpec | None = None) -> TSQRResult:
-    """``a_blocks`` is (P, m_local, n) on the target device."""
+                   fault_spec: FaultSpec | None = None, observed=None) -> TSQRResult:
+    """``a_blocks`` is (P, m_local, n) on the target device.
+
+    ``observed`` (coded runs only) is what the data ranks hold now: parity
+    is encoded from ``a_blocks``, the distribution-time truth, so silent
+    corruption is injected by perturbing ``observed`` and the checksum
+    verification catches the divergence.
+    """
+    if config.redundancy is Redundancy.CODED:
+        return _factorize_sim_coded(a_blocks, config, fault_spec, observed)
+    if observed is not None:
+        raise ValueError(
+            "observed= models silently-corrupted payloads, which only the "
+            "coded scheme can act on; use redundancy='coded'"
+        )
     p = a_blocks.shape[0]
     plan = make_plan(config.variant, p, fault_spec)
     _check_compute_q(config, plan)

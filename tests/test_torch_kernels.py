@@ -139,7 +139,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
     dispatch.launches.reset()
     assert dispatch.launches.as_dict() == {"gram": 0, "fused_apply_gram": 0, "apply_right": 0,
                                            "trailing_update": 0, "panel_cross": 0,
-                                           "pad_cross": 0}
+                                           "pad_cross": 0, "combine_gram": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -163,7 +163,7 @@ def test_cpu_tensors_count_no_launch(rng):
     ops.pad_cross(ta, split=3, out_width=8, use_pallas=True)
     assert dispatch.launches.as_dict() == {
         "gram": 0, "fused_apply_gram": 0, "apply_right": 0,
-        "trailing_update": 0, "panel_cross": 0, "pad_cross": 0,
+        "trailing_update": 0, "panel_cross": 0, "pad_cross": 0, "combine_gram": 0,
     }
 
 

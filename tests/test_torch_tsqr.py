@@ -153,15 +153,30 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("config,kwargs,item", [
-    (QRConfig(panel_width=4, redundancy="coded"), {}, "A.8"),
     (QRConfig(), {"mesh": object()}, "A.3"),
     (QRConfig(gram=True), {}, "A.3"),
-    (QRConfig(redundancy="coded"), {}, "A.8"),
 ])
 def test_later_slices_raise_not_implemented(config, kwargs, item):
     blocks = np.zeros((2, 8, 2), np.float32)
     with pytest.raises(NotImplementedError, match=item):
         factorize(blocks, config, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("fields,shape,kwargs", [
+    (dict(), (2, 2, 8, 2), {}),                        # a batch
+    (dict(panel_width=2), (2, 2, 8, 2), {}),
+    (dict(), (16, 2), {"mesh": object()}),             # a mesh, refused for good
+    (dict(panel_width=2), (16, 2), {"mesh": object()}),
+])
+def test_coded_refusals_match_reference(fields, shape, kwargs):
+    """The coded scheme refuses batches and meshes with the reference's
+    ValueError (the mesh refusal comes before the port's A.3 one)."""
+    blocks = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError) as want:
+        jfactorize(jnp.asarray(blocks), JQRConfig(redundancy="coded", **fields), **kwargs)
+    with pytest.raises(ValueError) as got:
+        factorize(blocks, QRConfig(redundancy="coded", **fields), device="cpu", **kwargs)
+    assert str(got.value) == str(want.value)
 
 
 def test_routing_errors(rng):
