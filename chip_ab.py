@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time two or more checkouts of the PyTorch/CUDA port in turns on one GPU.
+
+    python3 chip_ab.py OLD NEW NEW OLD
+
+Each argument is the root of a checkout (a directory holding
+``src/repro_torch``).  In the order given, one process per argument builds
+that checkout's kernels (into its own ``build/``), draws the same inputs
+from fixed seeds on the card and times, with TF32 off:
+
+* ``panel_cross`` at 8 × 2^17 × 512, split 128, and ``apply_right`` at
+  8 × 2^19 × 128 (CUDA events, median of 7 samples of 5 launches);
+* blocked ``factorize`` at general_full (8 × 2^17 × 512, panels of 128,
+  ``use_pallas``) through the pipeline and the eager driver, and the
+  kernel layer's explicit-Q ``ops.cholesky_qr2`` at powersgd_panel
+  (8 × 2^19 × 128): host clock around calls ending in a synchronize,
+  median of 5 warm runs.
+
+Each process prints one JSON line; the last line is a JSON object with
+every run's numbers in the order given, and the card's name and power
+limit.  Comparing versions in one call on one card, in turns (old, new,
+new, old), keeps the card and its neighbours the same.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+P = 8
+PANEL = 128
+GENERAL_FULL = (P, 1 << 17, 512)
+POWERSGD_PANEL = (P, (1 << 22) // P, 128)
+
+
+def _events_ms(torch, fn, repeats: int = 7, inner: int = 5) -> float:
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+def _host_ms(torch, fn) -> float:
+    samples = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def one(root: Path) -> dict:
+    """Build and time one checkout in this process."""
+    import torch
+
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.apply_right import apply_right
+    from repro_torch.kernels.trailing_update import panel_cross
+    from repro_torch.qr import QRConfig, factorize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    gen = torch.Generator(device="cuda")
+
+    def randn(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    full = randn(GENERAL_FULL, 4000)
+    a = randn(POWERSGD_PANEL, 2000)
+    w = randn(POWERSGD_PANEL[:1] + POWERSGD_PANEL[2:] * 2, 2001) / POWERSGD_PANEL[2] ** 0.5
+    out = {
+        "root": str(root),
+        "panel_cross_ms": _events_ms(torch, lambda: panel_cross(full, split=PANEL)),
+        "apply_right_ms": _events_ms(torch, lambda: apply_right(a, w)),
+    }
+    for pipeline in ("auto", "off"):
+        cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline=pipeline)
+        out[f"blocked_general_full_pipeline_{pipeline}_ms"] = _host_ms(
+            torch, lambda cfg=cfg: factorize(full, cfg))
+    out["cholesky_qr2_powersgd_panel_ms"] = _host_ms(
+        torch, lambda: ops.cholesky_qr2(a, use_pallas=True))
+    return out
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(one(Path(argv[1]).resolve())), flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    runs = []
+    for root in argv:
+        proc = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    print(card)
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -35,7 +35,8 @@ Phases (each raises on failure; the script then exits non-zero):
    process per source, in parallel);
 2. print the card's name and power limit;
 3. hold each kernel against its plain PyTorch version on the card (f32 and
-   bf16, ragged rows, a P = 8 batch, strided views), check the bitwise
+   bf16, ragged rows, a P = 8 batch, strided views, row strides and offsets
+   that take each of the staging copy widths), check the bitwise
    contracts (fused ≡ gram(apply_right), want_q=False ≡ True, the
    lookahead S ≡ panel_cross of the stored A_new, pad_cross's real columns
    ≡ panel_cross, the same real columns under extra zero columns), that two
@@ -44,9 +45,10 @@ Phases (each raises on failure; the script then exits non-zero):
    with rank 5 dying at exchange 1; ``compute_q`` on the kernel route and,
    for the plain polish Gram, with ``local_r="cqr2"``), at 2^22 x 128
    (redundant, selfhealing), and the explicit-Q CholeskyQR2 of the kernel
-   layer; check validity against the plan, every survivor's R against a
-   float64 Householder R of the same matrix, the orthogonality of Q, and
-   one launch of each CholeskyQR2 kernel per factorization;
+   layer (timed end to end at 2^22 x 128); check validity against the
+   plan, every survivor's R against a float64 Householder R of the same
+   matrix, the orthogonality of Q, and one launch of each CholeskyQR2
+   kernel per factorization;
 5. drive the blocked ``factorize`` (redundant and selfhealing; the
    fixed-shape pipeline, the eager driver, the split schedule, panel-phase
    and update-phase deaths, ``recover="off"``, ``compute_q``); check
@@ -62,8 +64,10 @@ Phases (each raises on failure; the script then exits non-zero):
    counts; then the stock collective and blocked fault scenarios on the card;
 8. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
-   computing the same function where there is one, and its bound, and time
-   ``factorize`` end to end (coded against the butterfly as well).
+   computing the same function where there is one, and its bound, with
+   the SM clock and power draw under the two redesigned kernels and their
+   library calls, and time ``factorize`` end to end (coded against the
+   butterfly as well).
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
@@ -272,6 +276,10 @@ class Smoke:
         cases = [  # (batch, m, n, k): ragged m, P = 8 batches, k != n
             (1, 1000, 32, 32), (P, 777, 128, 128), (2, 513, 256, 256),
             (3, 100, 7, 5), (2, 300, 64, 40), (1, 257, 512, 512),
+            # rows of 120 bytes (f32) and 60 bytes (bf16): apply_right's
+            # 4-byte copies; odd bf16 rows (n = 7 above) take its one-element
+            # copies; k != n at the main path's n, one and two column tiles
+            (2, 333, 30, 30), (P, 1001, 128, 96), (P, 1001, 128, 200),
             *[(b, m, n, n) for b, m, n in MAIN_SHAPES.values()],
         ]
         for dtype in (torch.float32, torch.bfloat16):
@@ -351,10 +359,16 @@ class Smoke:
         torch, ref = self.torch, self.ref
         tu, pc, pad = (self.kernels[k] for k in ("trailing_update", "panel_cross", "pad_cross"))
         extra = 40
+        # (m, b, n_t): A = wide[..., b:b + n_t] of b + n_t + 40 columns, so
+        # panel_cross stages the first four with 16-byte copies and the last
+        # three, at the offset b = 7 or a row stride that is not a multiple
+        # of 4 elements, with 4-byte copies (bf16 at b = 7: one element a
+        # copy); m % 32 != 0 in all
+        cases = [(4099, 32, 96), (777, 32, 384), (4099, 128, 96), (777, 128, 384),
+                 (100, 7, 17), (1001, 32, 98), (333, 128, 130)]
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
-            for seed, (m, b, nt) in enumerate([(4099, 32, 96), (777, 32, 384), (4099, 128, 96),
-                                               (777, 128, 384), (100, 7, 17)]):
+            for seed, (m, b, nt) in enumerate(cases):
                 wide = self.randn((P, m, b + nt + extra), 200 + seed, dtype)
                 wide[..., b + nt:] = 0
                 a, a_ext = wide[..., b:b + nt], wide[..., b:]        # strided rows
@@ -541,6 +555,10 @@ class Smoke:
         self.launches["cholesky_qr2"] = counts.as_dict()
         log(f"[main] launches over {len(data)} explicit-Q cholesky_qr2 calls: "
             f"{self.launches['cholesky_qr2']}")
+        med, lo, hi = self._median_ms(lambda: self.ops.cholesky_qr2(data[HEADLINE],
+                                                                    use_pallas=True))
+        log(f"[e2e] ops.cholesky_qr2 {HEADLINE} {tuple(data[HEADLINE].shape)} use_pallas: "
+            f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, 5 runs)")
         cfg = QRConfig(variant="redundant", local_r=kern)
         for name, a in data.items():
             self.profile(f"TSQR {name} {tuple(a.shape)}", lambda a=a: factorize(a, cfg))
@@ -1063,6 +1081,23 @@ class Smoke:
                 }
                 self.times[(name, shape_name)] = row
                 log(f"[time] {name} {shape_name} {json.dumps(row)}")
+            if shape_name == HEADLINE:
+                self.clock("apply_right kernel", work["apply_right"][2])
+                self.clock("apply_right library a @ w", work["apply_right"][4])
+
+    def clock(self, label: str, fn, launches: int = 400) -> None:
+        """The SM clock and power draw while ``fn`` runs back to back: the
+        card may cap its clock at its power limit, which a time alone does
+        not show."""
+        for _ in range(launches):
+            fn()
+        time.sleep(0.5)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip()
+        self.torch.cuda.synchronize()
+        log(f"[clock] {label}: {out}")
 
     def time_row(self, shape, nbytes: int, flops: int, kern, plain, lib) -> dict:
         """Kernel, plain version and library call times beside the bound:
@@ -1118,6 +1153,8 @@ class Smoke:
             (bsz, m, n, b), f32 * bsz * (m * n + b * n), cross_ops(b, n),
             lambda: pc(full, split=b), lambda: ref.panel_cross(full, split=b),
             lambda: full[..., :b].mT @ full)
+        self.clock("panel_cross kernel", lambda: pc(full, split=b))
+        self.clock("panel_cross library a[..., :b].mT @ a", lambda: full[..., :b].mT @ full)
         nr = ragged.shape[-1]
         # no single library call widens A and forms S in one sweep
         self.times[("pad_cross", "general_ragged")] = self.time_row(

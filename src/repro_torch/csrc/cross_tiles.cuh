@@ -7,12 +7,13 @@
 //     does not depend on the trailing width or on which CTA computes it;
 //   * every element of a cross partial S[i][j] = sum_r X[r][i] X[r][j] is
 //     one f32 register summed over the rows of its split in order with
-//     __fmaf_rn (cqr2::gram_accumulate), and the splits are folded in index
-//     order (fold_rect).  The split is a function of (batch, m) only
-//     (_launch.cross_split), so trailing_update's S equals panel_cross of
-//     the stored A_new, pad_cross's real columns equal panel_cross, and a
-//     wider trailing block (extra zero columns) leaves the real columns'
-//     bits unchanged.
+//     __fmaf_rn (cqr2::gram_accumulate in trailing_update and pad_cross,
+//     the same chain on panel_cross's own tiling), and the splits are
+//     folded in index order (fold_rect).  The split is a function of
+//     (batch, m) only (_launch.cross_split), so trailing_update's S equals
+//     panel_cross of the stored A_new, pad_cross's real columns equal
+//     panel_cross, and a wider trailing block (extra zero columns) leaves
+//     the real columns' bits unchanged.
 // The tile shapes do not enter the arithmetic order.
 #pragma once
 
@@ -20,20 +21,7 @@
 
 namespace cross {
 
-using cqr2::kRows;
 using cqr2::kThreads;
-
-// X[r][c] = src[(r0 + r) * ld + c0 + c], zero outside rows < rows and
-// columns < width.  src's rows may be strided (ld >= width).
-template <typename S, int T>
-__device__ __forceinline__ void load_strided(float (*X)[T], const S* src, int rows, int width,
-                                             long long ld, int r0, int c0) {
-  for (int e = threadIdx.x; e < kRows * T; e += kThreads) {
-    const int r = e / T, c = e % T;
-    const int gr = r0 + r, gc = c0 + c;
-    X[r][c] = (gr < rows && gc < width) ? cqr2::to_f32(src[(long long)gr * ld + gc]) : 0.0f;
-  }
-}
 
 // Write one CTA's accumulator tile (ti, tj) into its split's (rows x cols)
 // partial.

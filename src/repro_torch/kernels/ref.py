@@ -61,9 +61,20 @@ def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
 
 def pad_cross(a: torch.Tensor, *, split: int, out_width: int):
     """Widen A with zero columns to ``out_width`` and return it with the
-    :func:`panel_cross` of the widened copy."""
-    a_pad = torch.nn.functional.pad(a, (0, out_width - a.shape[-1]))
-    return a_pad, panel_cross(a_pad, split=split)
+    :func:`panel_cross` of the widened copy.
+
+    S is :func:`panel_cross` of the unpadded A written into the real columns
+    of a zero S: the same function, since A's pad columns are zero, and the
+    real columns then equal ``panel_cross(a)`` bit for bit on any BLAS, the
+    contract the card's kernels keep (``csrc/cross_tiles.cuh``).  A product
+    of the widened copy would leave the summation order to the BLAS, which
+    may pick another one for another width.
+    """
+    n = a.shape[-1]
+    a_pad = torch.nn.functional.pad(a, (0, out_width - n))
+    s = torch.zeros(a.shape[:-2] + (split, out_width), dtype=torch.float32, device=a.device)
+    s[..., :n] = panel_cross(a, split=split)
+    return a_pad, s
 
 
 def combine_gram(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package."""
+"""The PyTorch port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor ``chip_ab.py``, imports JAX or the JAX package."""
 import ast
 import json
 import os
@@ -45,7 +45,8 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", *sorted(PACKAGE.rglob("*.py"))],
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+                                  *sorted(PACKAGE.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}

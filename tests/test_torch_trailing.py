@@ -103,6 +103,19 @@ def test_pad_cross_matches_reference(rng, shape, dt, route):
         assert torch.equal(s[..., :nt], ref.panel_cross(ta, split=b))
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("extra", [0, 1, 5, 64])
+def test_pad_cross_real_columns_do_not_depend_on_the_width(rng, dt, extra):
+    """The plain pad_cross keeps the kernels' width contract by
+    construction: S's real columns are panel_cross of A to the bit, and the
+    pad columns exact zeros, whatever the padded width and the host BLAS."""
+    _, ta = _pair(rng.standard_normal((3, 37, 11)).astype(np.float32), dt)
+    a_pad, s = ref.pad_cross(ta, split=4, out_width=11 + extra)
+    assert torch.equal(s[..., :11], ref.panel_cross(ta, split=4))
+    assert not s[..., 11:].any() and not a_pad[..., 11:].any()
+    assert torch.equal(a_pad[..., :11], ta)
+
+
 def test_strided_views_take_no_copy_and_match_dense(rng):
     """The drivers pass the trailing block as a column slice; the wrappers
     take it as it is and give the same values as a dense copy."""
