@@ -8,11 +8,15 @@ Each argument is the root of a checkout (a directory holding
 that checkout's kernels (into its own ``build/``), draws the same inputs
 from fixed seeds on the card and times, with TF32 off:
 
-* ``panel_cross`` at 8 × 2^17 × 512, split 128, and ``apply_right`` at
-  8 × 2^19 × 128 (CUDA events, median of 7 samples of 5 launches);
+* the kernels (CUDA events, median of 7 samples of 5 launches):
+  ``panel_cross`` at 8 × 2^17 × 512, split 128; ``apply_right`` at
+  8 × 2^19 × 128; ``trailing_update`` on the strided 8 × 2^17 × 384
+  trailing block of general_full with the 128-column lookahead;
+  ``fused_apply_gram`` at 8 × 2^19 × 128 with ``want_q`` False and True;
 * blocked ``factorize`` at general_full (8 × 2^17 × 512, panels of 128,
-  ``use_pallas``) through the pipeline and the eager driver, and the
-  kernel layer's explicit-Q ``ops.cholesky_qr2`` at powersgd_panel
+  ``use_pallas``) through the pipeline and the eager driver, the kernel
+  layer's explicit-Q ``ops.cholesky_qr2`` and TSQR ``factorize``
+  (redundant butterfly, ``local_r="cqr2_pallas"``) at powersgd_panel
   (8 × 2^19 × 128): host clock around calls ending in a synchronize,
   median of 5 warm runs.
 
@@ -70,7 +74,8 @@ def one(root: Path) -> dict:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.apply_right import apply_right
-    from repro_torch.kernels.trailing_update import panel_cross
+    from repro_torch.kernels.fused_apply_gram import fused_apply_gram
+    from repro_torch.kernels.trailing_update import panel_cross, trailing_update
     from repro_torch.qr import QRConfig, factorize
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,10 +89,17 @@ def one(root: Path) -> dict:
     full = randn(GENERAL_FULL, 4000)
     a = randn(POWERSGD_PANEL, 2000)
     w = randn(POWERSGD_PANEL[:1] + POWERSGD_PANEL[2:] * 2, 2001) / POWERSGD_PANEL[2] ** 0.5
+    trail = full[..., PANEL:]                     # the strided trailing block, n_t = 384
+    q = randn(GENERAL_FULL[:2] + (PANEL,), 4002) / GENERAL_FULL[1] ** 0.5
+    wt = randn((P, PANEL, trail.shape[-1]), 4003) / PANEL ** 0.5
     out = {
         "root": str(root),
         "panel_cross_ms": _events_ms(torch, lambda: panel_cross(full, split=PANEL)),
         "apply_right_ms": _events_ms(torch, lambda: apply_right(a, w)),
+        "trailing_update_ms": _events_ms(
+            torch, lambda: trailing_update(trail, q, wt, next_width=PANEL)),
+        "fused_apply_gram_ms": _events_ms(torch, lambda: fused_apply_gram(a, w, want_q=False)),
+        "fused_apply_gram_want_q_ms": _events_ms(torch, lambda: fused_apply_gram(a, w)),
     }
     for pipeline in ("auto", "off"):
         cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline=pipeline)
@@ -95,6 +107,8 @@ def one(root: Path) -> dict:
             torch, lambda cfg=cfg: factorize(full, cfg))
     out["cholesky_qr2_powersgd_panel_ms"] = _host_ms(
         torch, lambda: ops.cholesky_qr2(a, use_pallas=True))
+    tsqr = QRConfig(variant="redundant", local_r="cqr2_pallas")
+    out["tsqr_powersgd_panel_ms"] = _host_ms(torch, lambda: factorize(a, tsqr))
     return out
 
 

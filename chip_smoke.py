@@ -65,7 +65,7 @@ Phases (each raises on failure; the script then exits non-zero):
 8. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound, with
-   the SM clock and power draw under the two redesigned kernels and their
+   the SM clock and power draw under the redesigned kernels and two
    library calls, and time ``factorize`` end to end (coded against the
    butterfly as well).
 
@@ -74,6 +74,7 @@ full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import statistics
@@ -136,6 +137,22 @@ KERNEL_PATH = {"gram": "factorize", "fused_apply_gram": "factorize",
 KERNEL_SHAPE = {"gram": HEADLINE, "fused_apply_gram": HEADLINE, "apply_right": HEADLINE,
                 "trailing_update": "general_full", "panel_cross": "general_full",
                 "pad_cross": "general_ragged", "combine_gram": "8x512"}
+# The port's kernel functions as the profiler names them, labelled by the
+# wrapper that launches them (panel_cross's sweep also runs inside
+# trailing_update, for its lookahead).
+PROFILE_NAMES = {"gram_partial_kernel": "gram", "fused_kernel": "fused_apply_gram",
+                 "fused_partial_kernel": "fused_apply_gram", "apply_kernel": "apply_right",
+                 "update_kernel": "trailing_update", "cross_partial_kernel": "panel_cross sweep",
+                 "pad_cross_kernel": "pad_cross", "combine_gram_kernel": "combine_gram",
+                 "fold_partials": "Gram fold", "fold_rect": "cross fold"}
+# Each kernel's f32 main-path instantiation, as its mangled name spells it
+# (float, the 128-wide tile, 16-byte copies), whose ptxas -v report the
+# build phase prints.
+MAIN_ENTRY = {"gram": "19gram_partial_kernelIfLi128E", "fused_apply_gram":
+              "12fused_kernelIfLi128ELi4E", "apply_right": "12apply_kernelIfLi128ELi4E",
+              "trailing_update": "13update_kernelIfLi128ELi4E",
+              "panel_cross": "20cross_partial_kernelIfLi128ELi4E",
+              "pad_cross": "16pad_cross_kernelIfLi128E", "combine_gram": "19combine_gram_kernelIf"}
 # combine_gram's widths (8 matrices each; n <= 512 in every TSQR use) and the
 # coded scheme's parity counts.
 COMBINE_WIDTHS = (32, 128, 512)
@@ -214,6 +231,7 @@ class Smoke:
         self.times: dict[tuple[str, str], dict] = {}
         self.e2e: dict[tuple[str, str], float] = {}
         self.blocked_full = None      # general_full's input and float64 R
+        self.ptxas: dict[str, str] = {}  # kernel -> ptxas -v of its main-path instantiation
 
     # -- helpers --------------------------------------------------------------
 
@@ -252,10 +270,17 @@ class Smoke:
         self.build_mod.build_all()
         log(f"[build] {len(self.build_mod.KERNELS)} kernel libraries in "
             f"{time.perf_counter() - t0:.1f} s ({self.build_mod.build_dir()})")
-        for name, lines in self.build_mod.ptxas_report().items():
-            regs = [ln.split("Used ")[1].split(",")[0] for ln in lines if "Used " in ln]
-            spills = [ln for ln in lines if "spill" in ln and not ln.startswith("0 bytes")]
-            log(f"[build] {name}: {', '.join(regs)}; spilling variants: {len(spills)}")
+        for name in self.build_mod.KERNELS:
+            entries = self.build_mod.ptxas_entries(name).values()
+            regs = [e.split("Used ")[1].split(",")[0] for e in entries if "Used " in e]
+            spills = [k for k, e in self.build_mod.ptxas_entries(name).items()
+                      if ", 0 bytes spill stores" not in e]
+            log(f"[build] {name}: {', '.join(regs)}; spilling variants: {len(spills)} "
+                f"{spills}")
+        for name, entry in MAIN_ENTRY.items():
+            found = [v for k, v in self.build_mod.ptxas_entries(name).items() if entry in k]
+            self.ptxas[name] = found[0] if found else "not in the build log"
+            log(f"[build] {name} main-path instantiation ({entry}): {self.ptxas[name]}")
 
     # -- phase 2: card --------------------------------------------------------
 
@@ -1012,31 +1037,72 @@ class Smoke:
 
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over
-        the call, the device-time sums by kernel, and the device's busy
-        share of the wall time (kernel self time summed over the call's wall
-        clock; the call runs alone on the card, so kernels do not overlap)."""
+        the call, the device-time sums by kernel (each port kernel named by
+        its wrapper), and the device's busy share of the call (kernel time
+        summed, over the span between CUDA events recorded around the call
+        and over the host wall; the call runs alone on the card, so kernels
+        do not overlap).  The window opens 20 ms before the call, so no
+        launch of the call sits at its opening, and every launch of a port
+        kernel in the call must have its record: a missing one would leave
+        the busy share short."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
+        counts = self.dispatch.launches
         fn()
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = counts.as_dict()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             t0 = time.perf_counter()
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # device activities only: an aten:: operator's device time repeats
-        # the time of the kernels it launched
-        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+        launched = {k: v - before[k] for k, v in counts.as_dict().items() if v - before[k]}
+        span_us = start.elapsed_time(end) * 1e3
+        # device activities only (kernels, copies, fills): a host event's
+        # device time repeats the time of the kernels it launched, and
+        # CUPTI's host-side records (a launch blocked on a full command
+        # buffer) are no device work
+        cuda = torch.autograd.DeviceType.CUDA
+        rows, host = [], []
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and e.device_type == cuda:
+                rows.append((e.key, e.self_device_time_total, e.count))
+            elif e.self_device_time_total > 0 and not e.key.startswith("aten::"):
+                host.append((e.key, e.self_device_time_total, e.count))
+        check(bool(rows), f"profile {label}: the profiler recorded no device time")
+        records = collections.Counter()
+        for key, _, count in rows:
+            records[self._port_kernel(key)] += count
+        want = {("panel_cross sweep" if k == "panel_cross" else k): n for k, n in launched.items()}
+        missing = {k: (records[k], n) for k, n in want.items()
+                   if records[k] < n or (records[k] != n and k != "panel_cross sweep")}
+        check(not missing, f"profile {label}: kernel records (got, launched) {missing}")
         busy_us = sum(t for _, t, _ in rows)
-        if not rows:
-            log(f"[profile] {label}: the profiler recorded no device time (not measured)")
-            return
-        log(f"[profile] {label}: wall {wall_us:.0f} us, device busy "
-            f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%)")
+        log(f"[profile] {label}: wall {wall_us:.0f} us, device span {span_us:.0f} us "
+            f"(CUDA events), device busy {busy_us:.0f} us ({100 * busy_us / span_us:.1f}% of "
+            f"the span, {100 * busy_us / wall_us:.1f}% of the wall); every launch of a port "
+            f"kernel has its record ({launched})")
         for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
-            log(f"[profile]   {t:10.0f} us  x{count:<4d} {key[:90]}")
+            log(f"[profile]   {t:10.0f} us  x{count:<4d} {self._port_kernel(key):18s} {key[:80]}")
+        if host:
+            log("[profile]   not device work, not counted: " + ", ".join(
+                f"{key[:40]} {t:.0f} us x{count}" for key, t, count in host))
+
+    @staticmethod
+    def _port_kernel(key: str) -> str:
+        """The port's name for a kernel the profiler recorded, or
+        "library"."""
+        for fn_name, name in PROFILE_NAMES.items():
+            if f"::{fn_name}<" in key or f"::{fn_name}(" in key:
+                return name
+        return "library"
 
     # -- phase 8: kernel times ------------------------------------------------
 
@@ -1084,6 +1150,7 @@ class Smoke:
             if shape_name == HEADLINE:
                 self.clock("apply_right kernel", work["apply_right"][2])
                 self.clock("apply_right library a @ w", work["apply_right"][4])
+                self.clock("fused_apply_gram kernel", work["fused_apply_gram"][2])
 
     def clock(self, label: str, fn, launches: int = 400) -> None:
         """The SM clock and power draw while ``fn`` runs back to back: the
@@ -1149,6 +1216,9 @@ class Smoke:
                 lambda a=a, w=w, nw=nw: ref.trailing_update(a, q, w, next_width=nw), lib)
         self.times[("trailing_update", "general_full")] = self.times[
             ("trailing_update", f"general_full n_t={widths[0]}")]
+        trail = full[..., n - widths[0]:]
+        w0 = self.randn((bsz, b, widths[0]), 4003 + widths[0]) / b ** 0.5
+        self.clock("trailing_update kernel", lambda: tu(trail, q, w0, next_width=b))
         self.times[("panel_cross", "general_full")] = self.time_row(
             (bsz, m, n, b), f32 * bsz * (m * n + b * n), cross_ops(b, n),
             lambda: pc(full, split=b), lambda: ref.panel_cross(full, split=b),
@@ -1186,7 +1256,7 @@ class Smoke:
                 "max_abs_err": self.errors[name],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": t["shape"],
+                "shape": t["shape"], "ptxas": self.ptxas.get(name),
                 **{k: t[k] for k in ("two_calls_ms", "library_note") if k in t},
             })
         return rows

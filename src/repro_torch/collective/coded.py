@@ -51,7 +51,7 @@ import torch
 
 from ._tree import leaves, tree_map
 from .combiners import Combiner, get_combiner
-from .comm import Comm
+from .comm import Comm, check_device
 from .engine import _poison, _wire_codec
 from .faults import FaultSpec
 from .plan import leaf_bytes, payload_numel
@@ -512,6 +512,9 @@ def execute_coded(x, comm: Comm, plan: CodedPlan, combiner: Combiner | str, *, o
         )
     x = _data_rows(x, plan)
     _check_inexact(x)
+    check_device(x, comm)
+    if observed is not None:
+        check_device(observed, comm)
     val = coded.tree_prepare(x)
     if observed is not None:
         # data rows contribute what the ranks hold now; parity rows keep the

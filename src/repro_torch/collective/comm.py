@@ -13,6 +13,11 @@ destination list omits them), which the validity bits then adjudicate.
 
 ``exchange`` maps over payload trees (tuples of tensors), so the engine can
 route a ``(payload, validity)`` pair or a stacked payload in one call.
+
+A comm lives on one device (``device``, the card unless the caller asks
+for the CPU): the per-rank vectors it builds (rank ids, validity bits) land
+there, so the executors check that the payload does too
+(:func:`check_device`).
 """
 from __future__ import annotations
 
@@ -23,17 +28,35 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from ._tree import tree_map
+from ._tree import leaves, tree_map
 
-__all__ = ["Comm", "SimComm"]
+__all__ = ["Comm", "SimComm", "check_device", "resolve_device"]
 
 Pair = tuple[int, int]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; raise when there is none.  A CUDA device
+    without an index gets the current one, so it compares equal to the
+    device of the tensors placed on it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the port runs on the GPU by "
+                "default — pass device=\"cpu\" to run on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class Comm:
     """Interface: per-rank values with a leading (P,) axis."""
 
     n_ranks: int
+    device: torch.device
 
     def ranks(self):
         raise NotImplementedError
@@ -70,15 +93,31 @@ def _host_vector(data: bytes, dtype: str, n: int, device: torch.device):
     return torch.from_numpy(np.frombuffer(data, dtype=dtype, count=n).copy()).to(device)
 
 
+def check_device(x, comm: Comm) -> None:
+    """Raise ``ValueError`` unless every payload leaf of ``x`` lies on
+    ``comm.device``, where the comm builds its per-rank vectors."""
+    for leaf in leaves(x):
+        if leaf.device != comm.device:
+            raise ValueError(
+                f"payload on {leaf.device} but the comm's per-rank vectors are on "
+                f"{comm.device}; build the comm on the payload's device "
+                f"(SimComm(n_ranks, device=x.device))"
+            )
+
+
 @dataclasses.dataclass(frozen=True)
 class SimComm(Comm):
-    """Single-device simulation: leading (P,) axis on every per-rank value."""
+    """Single-device simulation: leading (P,) axis on every per-rank value.
+
+    ``device=None`` means the card (and raises without one); pass
+    ``device="cpu"`` to run on the CPU.
+    """
 
     n_ranks: int
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str | None = None
 
     def __post_init__(self):
-        object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     def ranks(self):
         return self.take(np.arange(self.n_ranks, dtype=np.int64))

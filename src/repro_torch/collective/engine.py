@@ -31,7 +31,7 @@ import torch
 
 from ._tree import leaves, tree_map
 from .combiners import Combiner, get_combiner
-from .comm import Comm
+from .comm import Comm, check_device
 from .faults import NEVER, FaultSpec
 from .packing import pack_sym, unpack_sym
 from .plan import Plan, _split_rounds, make_plan
@@ -114,6 +114,7 @@ def execute_plan(
     (raises if the plan is not fault-free).
     """
     combiner = get_combiner(combiner)
+    check_device(x, comm)
     fault_free = plan.is_fault_free
     if fast is True and not fault_free:
         raise ValueError(
@@ -174,6 +175,7 @@ def replica_fetch(x, comm: Comm, valid) -> object:
         return x
     if not valid.any():
         raise ValueError("replica_fetch: no valid rank holds the value")
+    check_device(x, comm)
     donors = np.flatnonzero(valid)
     starved = np.flatnonzero(~valid)
     pairs = [

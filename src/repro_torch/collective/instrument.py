@@ -76,6 +76,10 @@ class InstrumentedComm(Comm):
     def n_ranks(self) -> int:  # type: ignore[override]
         return self.inner.n_ranks
 
+    @property
+    def device(self):  # type: ignore[override]
+        return self.inner.device
+
     def ranks(self):
         return self.inner.ranks()
 

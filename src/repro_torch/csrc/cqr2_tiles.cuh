@@ -1,15 +1,17 @@
 // Device building blocks shared by the CholeskyQR2 kernels (gram.cu,
-// fused_apply_gram.cu, apply_right.cu).
+// fused_apply_gram.cu, apply_right.cu) and the blocked-QR kernels.
 //
 // Bitwise contracts the three kernels keep with each other:
 //   * every element of Q = A.W is one f32 register summed over l = 0..n-1
-//     in order with __fmaf_rn (apply_chunk), so apply_right and the fused
+//     in order with __fmaf_rn (apply_chunk here, apply_right.cu's loop and
+//     slab_tiles.cuh keep the same chain), so apply_right and the fused
 //     kernel produce the same bits;
 //   * every element of a Gram partial is one f32 register summed over the
-//     rows of its split in order with __fmaf_rn (gram_accumulate), and the
-//     splits are folded in index order (fold_partials), so the fused
-//     kernel's G' equals gram(apply_right(A, W)) whenever both use the same
-//     row split, and every run gives the same bits (no atomics).
+//     rows of its split in order with __fmaf_rn (gram_accumulate, and
+//     fused_apply_gram.cu's own tiling of the same chain), and the splits
+//     are folded in index order (fold_partials), so the fused kernel's G'
+//     equals gram(apply_right(A, W)) whenever both use the same row split,
+//     and every run gives the same bits (no atomics).
 // The tile shapes do not enter the arithmetic order, so the kernels are free
 // to tile differently.
 #pragma once
@@ -34,6 +36,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 // Output tile edge for a Gram or product width: one tile up to 128 columns.
 inline int tile_for(int width) { return width <= 32 ? 32 : (width <= 64 ? 64 : 128); }
+
+// A thread's MT = T / 16 indices along one axis, for thread coordinate t:
+// groups of G consecutive indices, group g at g * 16 * G + t * G.
+template <int T>
+struct Axis {
+  static constexpr int MT = T / 16;
+  static constexpr int G = MT < 4 ? MT : 4;
+  static __device__ __forceinline__ int index(int t, int e) {
+    return (e / G) * 16 * G + t * G + e % G;
+  }
+};
 
 // Index of upper-triangle tile pair p (row-major over I <= J) in an nt x nt grid.
 __device__ __forceinline__ void tile_pair(int p, int nt, int& ti, int& tj) {

@@ -1,19 +1,19 @@
 // Device building blocks shared by the blocked-QR kernels (trailing_update.cu,
-// panel_cross.cu, pad_cross.cu), on top of the CholeskyQR2 tiles.
+// panel_cross.cuh, pad_cross.cu), on top of the CholeskyQR2 tiles.
 //
 // Bitwise contracts the three kernels keep with each other:
 //   * every element of A_new = A - Q.W is A minus one f32 register summed
-//     over l = 0..b-1 in order with __fmaf_rn (cqr2::apply_chunk), so it
-//     does not depend on the trailing width or on which CTA computes it;
+//     over l = 0..b-1 in order with __fmaf_rn (slab_tiles.cuh), so it does
+//     not depend on the trailing width or on which CTA computes it;
 //   * every element of a cross partial S[i][j] = sum_r X[r][i] X[r][j] is
 //     one f32 register summed over the rows of its split in order with
-//     __fmaf_rn (cqr2::gram_accumulate in trailing_update and pad_cross,
-//     the same chain on panel_cross's own tiling), and the splits are
-//     folded in index order (fold_rect).  The split is a function of
-//     (batch, m) only (_launch.cross_split), so trailing_update's S equals
-//     panel_cross of the stored A_new, pad_cross's real columns equal
-//     panel_cross, and a wider trailing block (extra zero columns) leaves
-//     the real columns' bits unchanged.
+//     __fmaf_rn (cqr2::gram_accumulate in pad_cross, the same chain on
+//     panel_cross.cuh's own tiling), and the splits are folded in index
+//     order (fold_rect).  The split is a function of (batch, m) only
+//     (_launch.cross_split), so pad_cross's real columns equal panel_cross,
+//     trailing_update's S is panel_cross's sweep of the stored A_new, and a
+//     wider trailing block (extra zero columns) leaves the real columns'
+//     bits unchanged.
 // The tile shapes do not enter the arithmetic order.
 #pragma once
 

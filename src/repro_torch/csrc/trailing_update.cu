@@ -1,6 +1,6 @@
-// One-sweep blocked-QR trailing update: A_new = A - Q.W in f32, cast to the
+// One blocked-QR trailing update: A_new = A - Q.W in f32, cast to the
 // storage type, and with next_width > 0 the lookahead
-// S = A_new[:, :next_width]^T A_new of the cast rows in the same sweep.
+// S = A_new[:, :next_width]^T A_new of the stored rows.
 //
 // Replaces the TPU kernel src/repro/kernels/trailing_update.py:
 // trailing_update (_update_kernel) and its Pallas-Triton lowering in
@@ -14,114 +14,161 @@
 // operations against the same bytes: 28 flop/byte, still operations-bound.
 // f32 stays f32 (no TF32): S holds the next panel's Gram.
 //
-// Design.  The grid is (row tile I of S, column tile J of A_new) pairs
-// (grid.x) by row splits (grid.y, _launch.cross_split: a function of
-// (batch, m) only) by batch (grid.z).  Per 32-row chunk a CTA computes the
-// update of column tile J with cqr2::apply_chunk (Q and W staged through
-// shared memory, one in-order __fmaf_rn chain over l < b per element),
-// subtracts it from A with one rounding, casts to the storage type and
-// feeds the cast values to the same gram_accumulate as panel_cross.  The
-// CTAs of S row tile 0 write their A_new tile, so every A_new element is
-// written once; a CTA whose S row tile I differs from J recomputes the
-// A_new columns of tile I by the same chain, so the bits agree, and does
-// not write them.  S partials fold in split order (no atomics), so S equals
-// panel_cross of the stored A_new bit for bit.  A is read and A_new is
-// written through row strides: the blocked drivers pass the trailing block
-// as a column slice, and the fixed-shape pipeline writes A_new into the
-// leading columns of a wider buffer, with no copy.
-#include "cross_tiles.cuh"
+// Arithmetic.  Each A_new element is A minus one f32 register summed with
+// __fmaf_rn over l = 0..b-1 in order (slab_tiles.cuh), with one __fsub_rn
+// and one cast; it does not depend on the trailing width or the tiling, so
+// the fixed-shape pipeline (padded width) and the eager driver (live width)
+// store the same bits.  S is panel_cross.cuh's sweep over the stored A_new,
+// on _launch.cross_split's split, so S equals panel_cross(A_new) bit for
+// bit by construction.
+//
+// Design: two sweeps in one call, each computing every element once.
+//   1. update_kernel: a persistent grid of two 256-thread CTAs an SM (128
+//      registers, 112 KiB of shared memory each) walks the (matrix, column
+//      tile, row block) tiles of A_new, row blocks fastest, in contiguous
+//      ranges.  W's column tile stays in shared memory as an f32 slab for
+//      all the row blocks of a range; Q streams through a three-stage
+//      cp.async ring of depth slices (16 bytes a copy where Q's rows allow,
+//      zero-filled past the last row and depth), one barrier a slice, so
+//      the next two slices' copies are in flight during a slice's FMAs.
+//      Each thread owns an 8 x 8 tile and reads Q two depths at a time
+//      (64-bit broadcasts) and W four columns at a time (128-bit): 24
+//      shared reads for 256 FMAs.  Measured on an H100, one CTA an SM at
+//      four depths a read (168 registers) ran 24% slower.  The epilogue reads its A tile, subtracts
+//      and writes A_new through row strides, vectorized where they allow.
+//   2. with next_width > 0, panel_cross.cuh's sweep over the stored A_new
+//      and the in-order fold of its split partials.
+// The earlier design formed S in the same sweep as the update, which made
+// every CTA off S's row tile recompute that tile's A_new: 5/3 of the
+// update's work at n_t = 384.  Reading A_new back once costs 4 m n_t bytes,
+// which the cross sweep's FMAs hide.  A is read and A_new is written
+// through row strides: the blocked drivers pass the trailing block as a
+// column slice, and the fixed-shape pipeline writes A_new into the leading
+// columns of a wider buffer, with no copy.
+#include "panel_cross.cuh"
+#include "slab_tiles.cuh"
+
+#include <algorithm>
 
 namespace {
 
-// A_new for the thread's elements of the (kRows x T) chunk at (r0, c0):
-// a - upd with one rounding, cast to S; stored to `out` when `write` is
-// set, and staged as f32 of the cast value into X (zero outside the block).
+constexpr int kSlabBytes = 64 << 10;  // shared memory for W's slab
+
 template <typename S, int T>
-__device__ __forceinline__ void update_chunk(float (*X)[T], const S* a, long long lda, S* out,
-                                             long long ldo, int rows, int nt, int r0, int c0,
-                                             const float (&upd)[cqr2::kRows * T / cqr2::kThreads],
-                                             bool write) {
-  constexpr int TPC = cqr2::kThreads / T;
-  const int c = threadIdx.x % T, rbase = threadIdx.x / T;
-  const int gc = c0 + c;
+int update_smem(int b) {
+  return slab::slab_rows<T>(b) * T * 4 +
+         slab::kStages * slab::Tile<T>::kStageElems * static_cast<int>(sizeof(S));
+}
+
+template <typename S, int T, int CPE>
+__global__ void __launch_bounds__(slab::kThreads, 2)
+    update_kernel(const S* __restrict__ a, const S* __restrict__ q, const S* __restrict__ w,
+                  S* __restrict__ out, int batch, int m, int b, int nt, long long lda,
+                  long long a_bs, long long ldo, long long o_bs) {
+  using TL = slab::Tile<T>;
+  constexpr int BM = TL::BM, KD = TL::KD, TX = TL::TX, RM = TL::RM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int depth = slab::slab_rows<T>(b), slices = depth / KD;
+  float* wslab = reinterpret_cast<float*>(smem);                             // [depth][T]
+  S* ring = reinterpret_cast<S*>(smem + (size_t)depth * T * sizeof(float));  // [kStages][BM][KD]
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int row_blocks = (m + BM - 1) / BM, col_tiles = (nt + T - 1) / T;
+  const long long tiles_total = (long long)batch * col_tiles * row_blocks;
+  const long long t_end = tiles_total * (blockIdx.x + 1) / gridDim.x;
+  const bool vec_a = slab::vec4(a, lda, a_bs, batch);
+  const bool vec_o = slab::vec4(out, ldo, o_bs, batch);
+
+  for (long long t = tiles_total * blockIdx.x / gridDim.x; t < t_end;) {
+    const long long group = t / row_blocks;  // (matrix, column tile)
+    const long long seg_end = min(t_end, (group + 1) * row_blocks);
+    const int bb = (int)(group / col_tiles), c0 = (int)(group % col_tiles) * T;
+    const int rb0 = (int)(t - group * row_blocks);
+    const int steps = (int)(seg_end - t) * slices;
+    const S* qb = q + (long long)bb * m * b;
+    const S* ab = a + (long long)bb * a_bs;
+    S* ob = out + (long long)bb * o_bs;
+
+    __syncthreads();  // the previous range's reads of the slab and the ring are done
+    slab::load_slab<S, T>(wslab, w + (long long)bb * b * nt, b, nt, c0);
+    auto issue = [&](int s) {
+      if (s < steps)
+        slab::stage<S, T, CPE>(ring + (s % slab::kStages) * TL::kStageElems, qb, b,
+                               (rb0 + s / slices) * BM, m, (s % slices) * KD, b);
+      tiles::commit();
+    };
 #pragma unroll
-  for (int e = 0; e < cqr2::kRows * T / cqr2::kThreads; ++e) {
-    const int r = rbase + TPC * e;
-    const int gr = r0 + r;
-    float v = 0.0f;
-    if (gr < rows && gc < nt) {
-      const S stored =
-          cqr2::from_f32<S>(__fsub_rn(cqr2::to_f32(a[(long long)gr * lda + gc]), upd[e]));
-      if (write) out[(long long)gr * ldo + gc] = stored;
-      v = cqr2::to_f32(stored);
+    for (int s = 0; s < slab::kStages - 1; ++s) issue(s);
+
+    float acc[RM][8];
+    for (int s = 0; s < steps; ++s) {
+      tiles::wait<slab::kStages - 2>();
+      __syncthreads();  // slice s (and the slab) is visible; slice s - 1's stage is free
+      issue(s + slab::kStages - 1);
+      const int slice = s % slices;
+      if (slice == 0) {
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      }
+      const S* xs = ring + (s % slab::kStages) * TL::kStageElems + ty * RM * KD;
+      slab::fma_slice<S, T, 2, 1>(acc, xs, wslab + slice * KD * T + 4 * tx);
+      if (slice == slices - 1) {
+        const int r0 = (rb0 + s / slices) * BM + ty * RM;
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          if (r0 + i >= m) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gc = c0 + h * (T / 2) + 4 * tx;
+            if (gc >= nt) continue;
+            float av[4];
+            S v[4];
+            slab::load4<S>(ab + (long long)(r0 + i) * lda + gc, av, nt - gc, vec_a);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = cqr2::from_f32<S>(__fsub_rn(av[j], acc[i][4 * h + j]));
+            slab::store4<S>(ob + (long long)(r0 + i) * ldo + gc, v, nt - gc, vec_o);
+          }
+        }
+      }
     }
-    if (X) X[r][c] = v;
+    t = seg_end;
   }
+  tiles::wait<0>();
 }
 
-// Two CTAs per SM, as fused_apply_gram.cu: the same apply-then-Gram body.
-template <typename S, int T, bool WITH_S>
-__global__ void __launch_bounds__(cqr2::kThreads, 2)
-    trailing_kernel(const S* __restrict__ a, const S* __restrict__ q, const S* __restrict__ w,
-                    S* __restrict__ out, float* __restrict__ part, int m, int b, int nt,
-                    int next_width, long long lda, long long a_bs, long long ldo, long long o_bs,
-                    int rows_per_split) {
-  __shared__ __align__(16) float Xi[WITH_S ? cqr2::kRows : 1][T];
-  __shared__ __align__(16) float Xj[WITH_S ? cqr2::kRows : 1][T];
-  __shared__ __align__(16) float As[cqr2::kRows][cqr2::kDepth];
-  __shared__ __align__(16) float Ws[cqr2::kDepth][T];
-  const int nj = (nt + T - 1) / T;
-  const int ti = WITH_S ? (int)blockIdx.x / nj : 0, tj = blockIdx.x % nj;
-  const int sp = blockIdx.y, bb = blockIdx.z;
-  const S* ab = a + (long long)bb * a_bs;
-  const S* qb = q + (long long)bb * m * b;
-  const S* wb = w + (long long)bb * b * nt;
-  S* ob = out + (long long)bb * o_bs;
-  const int r_begin = sp * rows_per_split;
-  const int r_end = min(m, r_begin + rows_per_split);
-
-  float acc[T / 16][T / 16];
-  if (WITH_S) cross::zero_acc<T>(acc);
-  float upd[cqr2::kRows * T / cqr2::kThreads];
-  for (int r0 = r_begin; r0 < r_end; r0 += cqr2::kRows) {
-    cqr2::apply_chunk<S, T>(qb, wb, r_end, b, nt, r0, tj * T, As, Ws, upd);
-    update_chunk<S, T>(WITH_S ? Xj : nullptr, ab, lda, ob, ldo, r_end, nt, r0, tj * T, upd,
-                       ti == 0);
-    if (WITH_S) {
-      if (ti != tj) {
-        cqr2::apply_chunk<S, T>(qb, wb, r_end, b, nt, r0, ti * T, As, Ws, upd);
-        update_chunk<S, T>(Xi, ab, lda, ob, ldo, r_end, nt, r0, ti * T, upd, false);
-      }
-      __syncthreads();
-      cqr2::gram_accumulate<T>(ti == tj ? Xj : Xi, Xj, acc);
-      __syncthreads();
-    }
-  }
-  if (WITH_S) {
-    float* dst = part + ((long long)bb * gridDim.y + sp) * next_width * nt;
-    cross::store_rect<T>(dst, next_width, nt, ti, tj, acc);
-  }
+template <typename S, int T, int CPE>
+cudaError_t launch_update(const S* a, const S* q, const S* w, S* out, int batch, int m, int b,
+                          int nt, long long lda, long long a_bs, long long ldo, long long o_bs,
+                          cudaStream_t stream) {
+  const int smem = update_smem<S, T>(b);
+  cudaError_t err = cudaFuncSetAttribute(update_kernel<S, T, CPE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, update_kernel<S, T, CPE>,
+                                                        slab::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles_total = (long long)batch * ((nt + T - 1) / T) *
+                                ((m + slab::Tile<T>::BM - 1) / slab::Tile<T>::BM);
+  const int grid = (int)std::min(tiles_total, (long long)std::max(1, per_sm) * sms);
+  update_kernel<S, T, CPE><<<grid, slab::kThreads, smem, stream>>>(a, q, w, out, batch, m, b, nt,
+                                                                   lda, a_bs, ldo, o_bs);
+  return cudaGetLastError();
 }
 
 template <typename S, int T>
-cudaError_t launch(const S* a, const S* q, const S* w, S* out, float* part, float* s, int batch,
-                   int m, int b, int nt, int next_width, long long lda, long long a_bs,
-                   long long ldo, long long o_bs, int rows_per_split, int splits,
-                   cudaStream_t stream) {
-  const int nj = (nt + T - 1) / T;
-  if (next_width == 0) {
-    const dim3 grid(nj, splits, batch);
-    trailing_kernel<S, T, false><<<grid, cqr2::kThreads, 0, stream>>>(
-        a, q, w, out, part, m, b, nt, 0, lda, a_bs, ldo, o_bs, rows_per_split);
-    return cudaGetLastError();
-  }
-  const int ni = (next_width + T - 1) / T;
-  const dim3 grid(ni * nj, splits, batch);
-  trailing_kernel<S, T, true><<<grid, cqr2::kThreads, 0, stream>>>(
-      a, q, w, out, part, m, b, nt, next_width, lda, a_bs, ldo, o_bs, rows_per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return cross::launch_fold_rect(part, s, batch, splits, next_width, nt, stream);
+cudaError_t update_by_copy(const S* a, const S* q, const S* w, S* out, int batch, int m, int b,
+                           int nt, long long lda, long long a_bs, long long ldo, long long o_bs,
+                           cudaStream_t stream) {
+  return tiles::by_copy(q, b, (long long)m * b, batch, [&](auto cpe) {
+    return launch_update<S, T, decltype(cpe)::value>(a, q, w, out, batch, m, b, nt, lda, a_bs,
+                                                     ldo, o_bs, stream);
+  });
 }
 
 template <typename S>
@@ -129,17 +176,18 @@ cudaError_t dispatch(const S* a, const S* q, const S* w, S* out, float* part, fl
                      int m, int b, int nt, int next_width, long long lda, long long a_bs,
                      long long ldo, long long o_bs, int rows_per_split, int splits,
                      cudaStream_t stream) {
-  switch (cqr2::tile_for(nt)) {
-    case 32:
-      return launch<S, 32>(a, q, w, out, part, s, batch, m, b, nt, next_width, lda, a_bs, ldo,
-                           o_bs, rows_per_split, splits, stream);
-    case 64:
-      return launch<S, 64>(a, q, w, out, part, s, batch, m, b, nt, next_width, lda, a_bs, ldo,
-                           o_bs, rows_per_split, splits, stream);
-    default:
-      return launch<S, 128>(a, q, w, out, part, s, batch, m, b, nt, next_width, lda, a_bs, ldo,
+  // Column tile: 128 (or less for narrow n_t), halved until W's slab fits.
+  const int t = cqr2::tile_for(nt);
+  cudaError_t err;
+  if (t == 128 && slab::slab_rows<128>(b) * 128 * 4 <= kSlabBytes)
+    err = update_by_copy<S, 128>(a, q, w, out, batch, m, b, nt, lda, a_bs, ldo, o_bs, stream);
+  else if (t >= 64 && slab::slab_rows<64>(b) * 64 * 4 <= kSlabBytes)
+    err = update_by_copy<S, 64>(a, q, w, out, batch, m, b, nt, lda, a_bs, ldo, o_bs, stream);
+  else
+    err = update_by_copy<S, 32>(a, q, w, out, batch, m, b, nt, lda, a_bs, ldo, o_bs, stream);
+  if (err != cudaSuccess || next_width == 0) return err;
+  return cross::panel_cross(static_cast<const S*>(out), part, s, batch, m, nt, next_width, ldo,
                             o_bs, rows_per_split, splits, stream);
-  }
 }
 
 }  // namespace
@@ -149,7 +197,7 @@ cudaError_t dispatch(const S* a, const S* q, const S* w, S* out, float* part, fl
 // stride ldo and batch stride o_bs (elements); one storage type (f32 or
 // bf16) for all four.  With next_width > 0, part: (batch, splits,
 // next_width, nt) f32 scratch and s: (batch, next_width, nt) f32; otherwise
-// both may be null.  Returns the launch's cudaError_t.
+// both may be null.  Returns the first launch's cudaError_t.
 extern "C" int repro_trailing_update(const void* a, const void* q, const void* w, void* out,
                                      void* part, void* s, int is_bf16, int batch, int m, int b,
                                      int nt, int next_width, long long lda, long long a_bs,

@@ -21,7 +21,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNELS", "BuildError", "build_all", "build_dir", "library", "source_key"]
+__all__ = [
+    "KERNELS", "BuildError", "build_all", "build_dir", "library", "ptxas_entries", "source_key",
+]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
@@ -138,16 +140,16 @@ def library(name: str) -> ctypes._CFuncPtr:
     return fn if fn is not None else build_all()[name]
 
 
-def ptxas_report() -> dict[str, list[str]]:
-    """The ``ptxas -v`` lines (registers, shared memory, spills) of each
-    built kernel library, read from its build log."""
-    out = build_dir()
-    report = {}
-    for name in KERNELS:
-        log = out / f"{name}.log"
-        if log.is_file():
-            report[name] = [
-                line.strip() for line in log.read_text().splitlines()
-                if "registers" in line or "spill" in line
-            ]
-    return report
+def ptxas_entries(name: str) -> dict[str, str]:
+    """``ptxas -v``'s report of each kernel entry of one built library:
+    the mangled entry name -> its spill line and its register line."""
+    log = build_dir() / f"{name}.log"
+    entries: dict[str, list[str]] = {}
+    entry = None
+    for line in log.read_text().splitlines() if log.is_file() else ():
+        if "Compiling entry function '" in line:
+            entry = line.split("'")[1]
+            entries[entry] = []
+        elif entry and ("spill" in line or "Used " in line):
+            entries[entry].append(line.split(":")[-1].strip())
+    return {k: "; ".join(v) for k, v in entries.items()}

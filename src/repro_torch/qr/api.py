@@ -30,6 +30,7 @@ import enum
 import numpy as np
 import torch
 
+from repro_torch.collective.comm import resolve_device
 from repro_torch.collective.faults import FaultSpec
 from repro_torch.collective.plan import VARIANTS
 
@@ -200,18 +201,6 @@ class QRConfig:
             local_qr="jnp" if local_r == "chol" else local_r, reorth=self.reorth,
             use_pallas=self.use_pallas and self.panel_width is not None,
         )
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; raise when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; the port runs on the GPU by "
-                "default — pass device=\"cpu\" to run on the CPU"
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 def _as_tensor(a, device: torch.device) -> torch.Tensor:

@@ -134,7 +134,7 @@ def test_coded_allreduce_matches_reference(rng, op, dt, fault):
         _as(x, jnp, dt), jc.SimComm(p + c), op=jop, n_parity=c,
         fault_spec=spec(jc.FaultSpec, deaths, slow, corrupt), observed=_as(observed, jnp, dt))
     val, valid, det = tc.coded_allreduce(
-        _as(x, torch, dt), tc.SimComm(p + c), op=top, n_parity=c,
+        _as(x, torch, dt), tc.SimComm(p + c, "cpu"), op=top, n_parity=c,
         fault_spec=spec(tc.FaultSpec, deaths, slow, corrupt), observed=_as(observed, torch, dt))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
     np.testing.assert_array_equal(det.numpy(), np.asarray(jdet))
@@ -157,8 +157,8 @@ def test_fault_free_bitwise_equals_butterfly(rng, op, c):
     p = 8
     x = _as(_payload(rng, op, p), torch, "float32")
     top = _combiners(op)[1]
-    ref, _ = tc.ft_allreduce(x, tc.SimComm(p), op=top, variant="redundant")
-    comm = tc.InstrumentedComm(tc.SimComm(p + c))
+    ref, _ = tc.ft_allreduce(x, tc.SimComm(p, "cpu"), op=top, variant="redundant")
+    comm = tc.InstrumentedComm(tc.SimComm(p + c, "cpu"))
     val, valid, det = tc.coded_allreduce(x, comm, op=top, n_parity=c)
     for got, want in zip(_leaves(val), _leaves(ref)):
         assert torch.equal(got[:p], want)
@@ -183,7 +183,7 @@ def test_decode_within_documented_bound(op, dt, c):
     x = np.random.default_rng(c).standard_normal((p, 4, 3)).astype(dt)
     dead = tuple(range(0, 2 * c, 2))[:c]                  # includes the root
     plan = tc.make_coded_plan(p, c, spec(tc.FaultSpec, dead))
-    val, valid, det = tc.coded_allreduce(torch.from_numpy(x), tc.SimComm(p + c), op=op, plan=plan)
+    val, valid, det = tc.coded_allreduce(torch.from_numpy(x), tc.SimComm(p + c, "cpu"), op=op, plan=plan)
     assert plan.n_erased == c and bool(valid[:p].all()) and not bool(det.any())
     truth = _truth(x, op)
     err = np.abs(val[0].double().numpy() - truth).max() / max(1.0, np.abs(truth).max())
@@ -197,7 +197,7 @@ def test_mixed_erasures_and_detection(dt):
     observed = x.copy()
     observed[6] *= 3.0
     plan = tc.make_coded_plan(p, c, spec(tc.FaultSpec, (1,), (4,), (6,)))
-    comm = tc.InstrumentedComm(tc.SimComm(p + c))
+    comm = tc.InstrumentedComm(tc.SimComm(p + c, "cpu"))
     val, valid, det = tc.coded_allreduce(torch.from_numpy(x), comm, op="sum", plan=plan,
                                          observed=torch.from_numpy(observed))
     truth = _truth(x, "sum")
@@ -213,7 +213,7 @@ def test_mixed_erasures_and_detection(dt):
 def test_unperturbed_corrupt_rank_is_reconstructed_not_flagged():
     p, c = 8, 2
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((p, 4, 3)).astype(np.float32))
-    val, valid, det = tc.coded_allreduce(x, tc.SimComm(p + c), n_parity=c,
+    val, valid, det = tc.coded_allreduce(x, tc.SimComm(p + c, "cpu"), n_parity=c,
                                          fault_spec=spec(tc.FaultSpec, corrupt=(5,)))
     assert bool(valid.all()) and not bool(det.any())
     torch.testing.assert_close(val[0], x.sum(0), rtol=0, atol=1e-5)
@@ -224,7 +224,7 @@ def test_over_budget_degrades_honestly(op):
     p, c = 8, 2
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((p, 4, 3)).astype(np.float32))
     plan = tc.make_coded_plan(p, c, spec(tc.FaultSpec, (0, 3, 5)))
-    comm = tc.InstrumentedComm(tc.SimComm(p + c))
+    comm = tc.InstrumentedComm(tc.SimComm(p + c, "cpu"))
     val, valid, _ = tc.coded_allreduce(x, comm, op=op, plan=plan)
     assert not plan.recoverable and not bool(valid.any())
     assert bool(torch.isnan(val).all())
@@ -234,18 +234,18 @@ def test_over_budget_degrades_honestly(op):
 def test_integer_payload_rejected():
     x = torch.arange(16, dtype=torch.int32).reshape(4, 4)
     with pytest.raises(TypeError, match="inexact"):
-        tc.coded_allreduce(x, tc.SimComm(5), n_parity=1)
+        tc.coded_allreduce(x, tc.SimComm(5, "cpu"), n_parity=1)
 
 
 def test_payload_rows_must_match_the_world():
     with pytest.raises(ValueError, match="matches neither P=4 nor W=5"):
-        tc.coded_allreduce(torch.zeros(3, 2), tc.SimComm(5), n_parity=1)
+        tc.coded_allreduce(torch.zeros(3, 2), tc.SimComm(5, "cpu"), n_parity=1)
     with pytest.raises(ValueError, match="comm has 6 ranks"):
-        tc.execute_coded(torch.zeros(4, 2), tc.SimComm(6), tc.make_coded_plan(4, 1), "sum")
+        tc.execute_coded(torch.zeros(4, 2), tc.SimComm(6, "cpu"), tc.make_coded_plan(4, 1), "sum")
     # a (W,)-leading payload: its parity rows are recomputed
     x = torch.ones(5, 2)
     x[4] = 99.0
-    val, _, _ = tc.coded_allreduce(x, tc.SimComm(5), n_parity=1,
+    val, _, _ = tc.coded_allreduce(x, tc.SimComm(5, "cpu"), n_parity=1,
                                    fault_spec=spec(tc.FaultSpec, (1,)))
     torch.testing.assert_close(val[0], torch.full((2,), 4.0))
 
@@ -260,7 +260,7 @@ def test_wire_accounting_exact_across_fault_mixes():
         for payload, op, leaves in ((x, "sum", [(4, 3, 4, False)]),
                                     (g, "gram_sum", [(5, 5, 4, True)])):
             plan = tc.make_coded_plan(p, c, spec(tc.FaultSpec, deaths, slow, corrupt))
-            comm = tc.InstrumentedComm(tc.SimComm(p + c))
+            comm = tc.InstrumentedComm(tc.SimComm(p + c, "cpu"))
             tc.coded_allreduce(payload, comm, op=op, plan=plan)
             assert comm.stats.messages == plan.message_count()
             assert comm.stats.payload_bytes == plan.bytes_on_wire_stacked(leaves)
@@ -270,13 +270,13 @@ def test_wire_accounting_exact_across_fault_mixes():
 def test_recover_payload_coded_branch():
     plan = tc.make_coded_plan(4, 2, spec(tc.FaultSpec, (1,)))
     x = torch.ones(4, 2)
-    assert tc.recover_payload(x, tc.SimComm(4), plan.final_valid, plan=plan) is x
+    assert tc.recover_payload(x, tc.SimComm(4, "cpu"), plan.final_valid, plan=plan) is x
     bad = tc.make_coded_plan(4, 1, spec(tc.FaultSpec, (0, 1)))
     with pytest.raises(ValueError) as want:
         jc.recover_payload(jnp.ones((4, 2)), jc.SimComm(4), bad.final_valid,
                            plan=jc.make_coded_plan(4, 1, spec(jc.FaultSpec, (0, 1))))
     with pytest.raises(ValueError, match=str(want.value)[:60]):
-        tc.recover_payload(x, tc.SimComm(4), bad.final_valid, plan=bad)
+        tc.recover_payload(x, tc.SimComm(4, "cpu"), bad.final_valid, plan=bad)
 
 
 if st is not None:
@@ -302,7 +302,7 @@ if st is not None:
         observed[list(corrupt)] *= 3.0
         plan = tc.make_coded_plan(p, c, spec(tc.FaultSpec, dead, slow, corrupt))
         assert_plans_equal(plan, jc.make_coded_plan(p, c, spec(jc.FaultSpec, dead, slow, corrupt)))
-        comm = tc.InstrumentedComm(tc.SimComm(p + c))
+        comm = tc.InstrumentedComm(tc.SimComm(p + c, "cpu"))
         val, valid, det = tc.coded_allreduce(torch.from_numpy(x), comm, op=op, plan=plan,
                                              observed=torch.from_numpy(observed))
         assert comm.stats.messages == plan.message_count()

@@ -97,7 +97,7 @@ def test_ft_allreduce_matches_reference(rng, op, variant):
         )
         plan = tc.make_plan(variant, p, ts)
         got, got_valid = tc.ft_allreduce(
-            torch.from_numpy(x), tc.SimComm(p), op=op, plan=plan
+            torch.from_numpy(x), tc.SimComm(p, "cpu"), op=op, plan=plan
         )
         _check_equal_semantics(got, got_valid, want, want_valid, plan)
 
@@ -114,7 +114,7 @@ def test_stacked_payload_matches_reference(rng, variant):
         )
         plan = tc.make_plan(variant, p, ts)
         (gr, gc), gv = tc.execute_plan(
-            (torch.from_numpy(r), torch.from_numpy(c)), tc.SimComm(p), plan,
+            (torch.from_numpy(r), torch.from_numpy(c)), tc.SimComm(p, "cpu"), plan,
             tc.stacked("gram_sum", "sum"),
         )
         _check_equal_semantics(gr, gv, wr, wv, plan)
@@ -129,7 +129,7 @@ def test_instrumented_counts_match_reference(rng, op, fast):
         for variant in VARIANTS:
             js, ts = _specs(deaths)
             jcomm = jc.InstrumentedComm(jc.SimComm(p))
-            tcomm = tc.InstrumentedComm(tc.SimComm(p))
+            tcomm = tc.InstrumentedComm(tc.SimComm(p, "cpu"))
             jc.execute_plan(jnp.asarray(x), jcomm, jc.make_plan(variant, p, js), op, fast=fast)
             tc.execute_plan(torch.from_numpy(x), tcomm, tc.make_plan(variant, p, ts), op,
                             fast=fast)
@@ -144,19 +144,19 @@ def test_fast_path_bitwise_equals_general_executor(rng, op, p):
     for variant in ("redundant", "replace", "selfhealing"):
         plan = tc.make_plan(variant, p)
         assert plan.is_fault_free
-        fast, fv = tc.execute_plan(x, tc.SimComm(p), plan, op, fast=True)
-        slow, sv = tc.execute_plan(x, tc.SimComm(p), plan, op, fast=False)
+        fast, fv = tc.execute_plan(x, tc.SimComm(p, "cpu"), plan, op, fast=True)
+        slow, sv = tc.execute_plan(x, tc.SimComm(p, "cpu"), plan, op, fast=False)
         assert torch.equal(fast, slow) and torch.equal(fv, sv)
 
 
 def test_fast_true_on_faulty_plan_raises():
     plan = tc.make_plan("redundant", 4, tc.FaultSpec.of({1: 1}))
     with pytest.raises(ValueError, match="fault-free"):
-        tc.execute_plan(torch.zeros(4, 2), tc.SimComm(4), plan, "sum", fast=True)
+        tc.execute_plan(torch.zeros(4, 2), tc.SimComm(4, "cpu"), plan, "sum", fast=True)
 
 
 def test_exchange_zero_fills_and_caches_indices():
-    comm = tc.SimComm(4)
+    comm = tc.SimComm(4, "cpu")
     x = torch.arange(1.0, 5.0)
     out = comm.exchange(x, [(0, 1), (2, 3)])
     assert out.tolist() == [0.0, 1.0, 0.0, 3.0]
@@ -185,10 +185,36 @@ def test_replica_fetch_matches_reference(rng, variant):
     js, ts = _specs(deaths)
     jplan, tplan = jc.make_plan(variant, p, js), tc.make_plan(variant, p, ts)
     jv, jvalid = jc.ft_allreduce(jnp.asarray(x), jc.SimComm(p), plan=jplan)
-    tv, tvalid = tc.ft_allreduce(torch.from_numpy(x), tc.SimComm(p), plan=tplan)
+    tv, tvalid = tc.ft_allreduce(torch.from_numpy(x), tc.SimComm(p, "cpu"), plan=tplan)
     want = jc.recover_payload(jv, jc.SimComm(p), jplan.final_valid, plan=jplan)
-    got = tc.recover_payload(tv, tc.SimComm(p), tplan.final_valid, plan=tplan)
+    got = tc.recover_payload(tv, tc.SimComm(p, "cpu"), tplan.final_valid, plan=tplan)
     assert not np.isnan(got.numpy()).any()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError, match="no valid rank"):
-        tc.replica_fetch(tv, tc.SimComm(p), np.zeros(p, bool))
+        tc.replica_fetch(tv, tc.SimComm(p, "cpu"), np.zeros(p, bool))
+
+
+def test_simcomm_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.SimComm(4)
+    comm = tc.SimComm(4, "cpu")
+    assert comm.device.type == "cpu"
+    assert tc.InstrumentedComm(comm).device == comm.device
+
+
+@pytest.mark.parametrize("call", ["ft_allreduce", "execute_plan_general", "replica_fetch",
+                                  "coded_allreduce"])
+def test_payload_off_the_comm_device_raises(call):
+    x = torch.zeros(4, 2, device="meta")
+    comm = tc.InstrumentedComm(tc.SimComm(4, "cpu"))
+    faulty = tc.make_plan("redundant", 4, tc.FaultSpec.of({1: 1}))
+    run = {
+        "ft_allreduce": lambda: tc.ft_allreduce(x, comm),
+        "execute_plan_general": lambda: tc.execute_plan(x, comm, faulty, "sum"),
+        "replica_fetch": lambda: tc.replica_fetch(x, comm, np.array([1, 0, 1, 1], bool)),
+        "coded_allreduce": lambda: tc.coded_allreduce(x[:3], comm, n_parity=1),
+    }[call]
+    with pytest.raises(ValueError, match="comm's per-rank vectors are on cpu"):
+        run()
+    assert comm.stats.rounds == 0
