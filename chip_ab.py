@@ -9,24 +9,33 @@ that checkout's kernels (into its own ``build/``), draws the same inputs
 from fixed seeds on the card and times, with TF32 off:
 
 * the kernels (CUDA events, median of 7 samples of 5 launches):
-  ``panel_cross`` at 8 × 2^17 × 512, split 128; ``apply_right`` at
-  8 × 2^19 × 128; ``trailing_update`` on the strided 8 × 2^17 × 384
-  trailing block of general_full with the 128-column lookahead;
-  ``fused_apply_gram`` at 8 × 2^19 × 128 with ``want_q`` False and True;
+  ``gram`` at 8 × 2^19 × 128, 8 × 2^17 × 128, 8 × 2^17 × 32 and
+  8 × 2^17 × 512; ``panel_cross`` at 8 × 2^17 × 512, split 128;
+  ``pad_cross`` at 8 × 2^17 × 480 widened to 512, split 128;
+  ``apply_right`` at 8 × 2^19 × 128; ``trailing_update`` on the strided
+  8 × 2^17 × 384 trailing block of general_full with the 128-column
+  lookahead; ``fused_apply_gram`` at 8 × 2^19 × 128 with ``want_q`` False
+  and True;
 * blocked ``factorize`` at general_full (8 × 2^17 × 512, panels of 128,
-  ``use_pallas``) through the pipeline and the eager driver, the kernel
-  layer's explicit-Q ``ops.cholesky_qr2`` and TSQR ``factorize``
-  (redundant butterfly, ``local_r="cqr2_pallas"``) at powersgd_panel
-  (8 × 2^19 × 128): host clock around calls ending in a synchronize,
-  median of 5 warm runs.
+  ``use_pallas``) through the pipeline and the eager driver and at
+  general_ragged (8 × 2^17 × 480) through the pipeline, the kernel layer's
+  explicit-Q ``ops.cholesky_qr2`` and TSQR ``factorize`` (redundant
+  butterfly, ``local_r="cqr2_pallas"``) at powersgd_panel (8 × 2^19 ×
+  128): host clock around calls ending in a synchronize, median of 5 warm
+  runs.
 
-Each process prints one JSON line; the last line is a JSON object with
-every run's numbers in the order given, and the card's name and power
-limit.  Comparing versions in one call on one card, in turns (old, new,
-new, old), keeps the card and its neighbours the same.
+Each process also prints a SHA-256 of the bytes of every output of each
+kernel it times (G; S and A_pad; Q; A_new and S; G′) and of each call's R,
+all from the fixed seeds, so checkouts whose kernels keep the same bits
+print the same hashes.  Each process prints one JSON line; the last line
+is a JSON object with every run's numbers in the order given, whether the
+hashes of all runs agree (and which differ), and the card's name and
+power limit.  Comparing versions in one call on one card, in turns (old,
+new, new, old), keeps the card and its neighbours the same.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -37,6 +46,7 @@ from pathlib import Path
 P = 8
 PANEL = 128
 GENERAL_FULL = (P, 1 << 17, 512)
+GENERAL_RAGGED = (P, 1 << 17, 480)
 POWERSGD_PANEL = (P, (1 << 22) // P, 128)
 
 
@@ -67,6 +77,18 @@ def _host_ms(torch, fn) -> float:
     return statistics.median(samples)
 
 
+def _sha256(*tensors) -> str:
+    """SHA-256 of the tensors' bytes in order (f32 or bf16, read raw)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        raw = t.detach().contiguous().view(-1).view(torch.uint8)
+        for chunk in raw.split(1 << 28):
+            h.update(chunk.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def one(root: Path) -> dict:
     """Build and time one checkout in this process."""
     import torch
@@ -75,7 +97,8 @@ def one(root: Path) -> dict:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.apply_right import apply_right
     from repro_torch.kernels.fused_apply_gram import fused_apply_gram
-    from repro_torch.kernels.trailing_update import panel_cross, trailing_update
+    from repro_torch.kernels.gram import gram
+    from repro_torch.kernels.trailing_update import pad_cross, panel_cross, trailing_update
     from repro_torch.qr import QRConfig, factorize
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,28 +110,48 @@ def one(root: Path) -> dict:
         return torch.randn(shape, generator=gen, device="cuda")
 
     full = randn(GENERAL_FULL, 4000)
+    ragged = randn(GENERAL_RAGGED, 4001)
     a = randn(POWERSGD_PANEL, 2000)
     w = randn(POWERSGD_PANEL[:1] + POWERSGD_PANEL[2:] * 2, 2001) / POWERSGD_PANEL[2] ** 0.5
+    polish = randn((P, 1 << 17, PANEL), 2002)
+    narrow = randn((P, 1 << 17, 32), 2003)
     trail = full[..., PANEL:]                     # the strided trailing block, n_t = 384
     q = randn(GENERAL_FULL[:2] + (PANEL,), 4002) / GENERAL_FULL[1] ** 0.5
     wt = randn((P, PANEL, trail.shape[-1]), 4003) / PANEL ** 0.5
-    out = {
-        "root": str(root),
-        "panel_cross_ms": _events_ms(torch, lambda: panel_cross(full, split=PANEL)),
-        "apply_right_ms": _events_ms(torch, lambda: apply_right(a, w)),
-        "trailing_update_ms": _events_ms(
-            torch, lambda: trailing_update(trail, q, wt, next_width=PANEL)),
-        "fused_apply_gram_ms": _events_ms(torch, lambda: fused_apply_gram(a, w, want_q=False)),
-        "fused_apply_gram_want_q_ms": _events_ms(torch, lambda: fused_apply_gram(a, w)),
+    kernels = {
+        "gram": lambda: gram(a),
+        "gram_polish": lambda: gram(polish),
+        "gram_n32": lambda: gram(narrow),
+        "gram_n512": lambda: gram(full),
+        "panel_cross": lambda: panel_cross(full, split=PANEL),
+        "pad_cross": lambda: pad_cross(ragged, split=PANEL, out_width=GENERAL_FULL[2]),
+        "apply_right": lambda: apply_right(a, w),
+        "trailing_update": lambda: trailing_update(trail, q, wt, next_width=PANEL),
+        "fused_apply_gram": lambda: fused_apply_gram(a, w, want_q=False),
+        "fused_apply_gram_want_q": lambda: fused_apply_gram(a, w),
     }
+    out = {"root": str(root)}
+    hashes = {}
+    for name, fn in kernels.items():
+        out[f"{name}_ms"] = _events_ms(torch, fn)
+        res = fn()
+        hashes[name] = _sha256(*(res if isinstance(res, tuple) else (res,)))
+        del res
+    calls = {}
     for pipeline in ("auto", "off"):
         cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline=pipeline)
-        out[f"blocked_general_full_pipeline_{pipeline}_ms"] = _host_ms(
-            torch, lambda cfg=cfg: factorize(full, cfg))
-    out["cholesky_qr2_powersgd_panel_ms"] = _host_ms(
-        torch, lambda: ops.cholesky_qr2(a, use_pallas=True))
+        calls[f"blocked_general_full_pipeline_{pipeline}"] = lambda cfg=cfg: factorize(full, cfg)
+    ragged_cfg = QRConfig(panel_width=PANEL, use_pallas=True, pipeline="auto")
+    calls["blocked_general_ragged_pipeline_auto"] = lambda: factorize(ragged, ragged_cfg)
+    calls["cholesky_qr2_powersgd_panel"] = lambda: ops.cholesky_qr2(a, use_pallas=True)
     tsqr = QRConfig(variant="redundant", local_r="cqr2_pallas")
-    out["tsqr_powersgd_panel_ms"] = _host_ms(torch, lambda: factorize(a, tsqr))
+    calls["tsqr_powersgd_panel"] = lambda: factorize(a, tsqr)
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = _host_ms(torch, fn)
+        res = fn()
+        hashes[name] = _sha256(*(res if isinstance(res, tuple) else (res.r,)))
+        del res
+    out["sha256"] = hashes
     return out
 
 
@@ -137,8 +180,11 @@ def main(argv: list[str]) -> int:
             return 1
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
+    differ = sorted({k for run in runs for k, h in run["sha256"].items()
+                     if h != runs[0]["sha256"].get(k)})
     print(card)
-    print(json.dumps({"card": card, "runs": runs}))
+    print(json.dumps({"card": card, "hashes_agree": not differ, "hashes_differ": differ,
+                      "runs": runs}))
     return 0
 
 

@@ -64,8 +64,9 @@ Phases (each raises on failure; the script then exits non-zero):
    counts; then the stock collective and blocked fault scenarios on the card;
 8. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
-   computing the same function where there is one, and its bound, with
-   the SM clock and power draw under the redesigned kernels and two
+   computing the same function where there is one, and its bound (``gram``
+   also at the blocked QR's polish shape 8 × 2^17 × 128 and at n = 512),
+   with the SM clock and power draw under the redesigned kernels and two
    library calls, and time ``factorize`` end to end (coded against the
    butterfly as well).
 
@@ -146,13 +147,16 @@ PROFILE_NAMES = {"gram_partial_kernel": "gram", "fused_kernel": "fused_apply_gra
                  "pad_cross_kernel": "pad_cross", "combine_gram_kernel": "combine_gram",
                  "fold_partials": "Gram fold", "fold_rect": "cross fold"}
 # Each kernel's f32 main-path instantiation, as its mangled name spells it
-# (float, the 128-wide tile, 16-byte copies), whose ptxas -v report the
-# build phase prints.
-MAIN_ENTRY = {"gram": "19gram_partial_kernelIfLi128E", "fused_apply_gram":
+# (float, the tile its main-path width takes, 16-byte copies where the
+# kernel stages with cp.async), whose ptxas -v report the build phase
+# prints; tests/test_torch_kernel_names.py holds these names and
+# PROFILE_NAMES to the sources.
+MAIN_ENTRY = {"gram": "19gram_partial_kernelIfLi128ELi4E", "fused_apply_gram":
               "12fused_kernelIfLi128ELi4E", "apply_right": "12apply_kernelIfLi128ELi4E",
               "trailing_update": "13update_kernelIfLi128ELi4E",
               "panel_cross": "20cross_partial_kernelIfLi128ELi4E",
-              "pad_cross": "16pad_cross_kernelIfLi128E", "combine_gram": "19combine_gram_kernelIf"}
+              "pad_cross": "16pad_cross_kernelIfLi128ELi4E",
+              "combine_gram": "19combine_gram_kernelIfLi64E"}
 # combine_gram's widths (8 matrices each; n <= 512 in every TSQR use) and the
 # coded scheme's parity counts.
 COMBINE_WIDTHS = (32, 128, 512)
@@ -1148,9 +1152,23 @@ class Smoke:
                 self.times[(name, shape_name)] = row
                 log(f"[time] {name} {shape_name} {json.dumps(row)}")
             if shape_name == HEADLINE:
+                self.clock("gram kernel", work["gram"][2])
                 self.clock("apply_right kernel", work["apply_right"][2])
                 self.clock("apply_right library a @ w", work["apply_right"][4])
                 self.clock("fused_apply_gram kernel", work["fused_apply_gram"][2])
+        # gram beside the headline row (and paper_fig's n = 32 above): the
+        # blocked QR's polish Gram of each 128-column panel of Q, and the
+        # widest Gram, whose ten tile pairs take the off-diagonal CTAs
+        gram = self.kernels["gram"]
+        for label, shape, seed in (("polish", (P, 1 << 17, PANEL), 2002),
+                                   ("n512", (P, 1 << 17, 512), 2003)):
+            b, m, n = shape
+            a = self.randn(shape, seed)
+            row = self.time_row(shape, 4 * b * (m * n + n * n), b * m * n * (n + 1),
+                                lambda a=a: gram(a), lambda a=a: ref.gram(a),
+                                lambda a=a: torch.matmul(a.mT, a))
+            self.times[("gram", label)] = row
+            log(f"[time] gram {label} {json.dumps(row)}")
 
     def clock(self, label: str, fn, launches: int = 400) -> None:
         """The SM clock and power draw while ``fn`` runs back to back: the
@@ -1231,6 +1249,7 @@ class Smoke:
             (bsz, m, nr, b, n), f32 * bsz * (m * nr + m * n + b * n), cross_ops(b, nr),
             lambda: pad(ragged, split=b, out_width=n),
             lambda: ref.pad_cross(ragged, split=b, out_width=n), None)
+        self.clock("pad_cross kernel", lambda: pad(ragged, split=b, out_width=n))
         for (name, shape), row in self.times.items():
             if name in ("trailing_update", "panel_cross", "pad_cross"):
                 log(f"[time] {name} {shape} {json.dumps(row)}")

@@ -1,5 +1,5 @@
-// Device building blocks shared by the blocked-QR kernels (trailing_update.cu,
-// panel_cross.cuh, pad_cross.cu), on top of the CholeskyQR2 tiles.
+// The fold shared by the blocked-QR kernels (trailing_update.cu,
+// panel_cross.cu, pad_cross.cu, all on panel_cross.cuh's sweep).
 //
 // Bitwise contracts the three kernels keep with each other:
 //   * every element of A_new = A - Q.W is A minus one f32 register summed
@@ -7,8 +7,7 @@
 //     not depend on the trailing width or on which CTA computes it;
 //   * every element of a cross partial S[i][j] = sum_r X[r][i] X[r][j] is
 //     one f32 register summed over the rows of its split in order with
-//     __fmaf_rn (cqr2::gram_accumulate in pad_cross, the same chain on
-//     panel_cross.cuh's own tiling), and the splits are folded in index
+//     __fmaf_rn (panel_cross.cuh's sweep), and the splits are folded in index
 //     order (fold_rect).  The split is a function of (batch, m) only
 //     (_launch.cross_split), so pad_cross's real columns equal panel_cross,
 //     trailing_update's S is panel_cross's sweep of the stored A_new, and a
@@ -22,32 +21,6 @@
 namespace cross {
 
 using cqr2::kThreads;
-
-// Write one CTA's accumulator tile (ti, tj) into its split's (rows x cols)
-// partial.
-template <int T>
-__device__ __forceinline__ void store_rect(float* part, int rows, int cols, int ti, int tj,
-                                           const float (&acc)[T / 16][T / 16]) {
-  constexpr int MT = T / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int a = 0; a < MT; ++a) {
-    const int i = ti * T + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < MT; ++b) {
-      const int j = tj * T + tx + 16 * b;
-      if (i < rows && j < cols) part[(long long)i * cols + j] = acc[a][b];
-    }
-  }
-}
-
-template <int T>
-__device__ __forceinline__ void zero_acc(float (&acc)[T / 16][T / 16]) {
-#pragma unroll
-  for (int i = 0; i < T / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < T / 16; ++j) acc[i][j] = 0.0f;
-}
 
 // s[b][i][j] = sum over splits in order of part[b][split][i][j].
 __global__ void fold_rect(const float* __restrict__ part, float* __restrict__ s, int batch,

@@ -9,69 +9,76 @@
 // without tensor cores) and memory bound at n = 32 (8 flop/byte).  TF32
 // tensor cores are not used: CholeskyQR squares kappa(A), so f32 stays f32.
 //
-// Design.  The TPU kernel accumulates into one output block that a
-// sequential grid revisits; on Hopper's parallel grid that is a race.  Here
-// the rows are split over CTAs (grid.y), each CTA streams its rows in
-// 32-row chunks through shared memory and keeps one output tile of at most
-// 128 x 128 in registers (8 x 8 per thread), so n up to 512 fits however
-// large the Gram.  Only the upper-triangle tiles are computed (grid.x).
-// Each CTA writes an f32 partial per split; fold_partials sums the splits
-// in index order and mirrors the triangle.  No atomics: every run gives
-// the same bits.  Ragged row tiles are masked while loading; no padded copy
-// of A is made.  bf16 inputs are converted to f32 on load.
-#include "cqr2_tiles.cuh"
+// Arithmetic (the contract of cqr2_tiles.cuh): each entry of a split's
+// partial is one f32 register summed with __fmaf_rn over the split's rows
+// in row order; the rows are split by _launch.row_split (a function of
+// (batch, m, n)), the splits folded in index order by fold_partials, which
+// reads the upper triangle and mirrors it.  fused_apply_gram.cu keeps the
+// same chain on the same split, so its G' equals gram(apply_right(A, W)).
+// No atomics: every run gives the same bits.
+//
+// Design: panel_cross.cuh's sweep on the upper-triangle tile pairs (I <= J,
+// grid.x) of every (split, matrix): a three-stage cp.async ring of 32-row
+// chunks, zero-filled past the split's last row and A's last column, one
+// barrier a chunk, 8 x 8 thread tiles read with 128-bit shared reads, two
+// CTAs an SM.  A diagonal CTA stages one tile and skips the blocks below
+// the diagonal; each CTA writes only the entries on or above it.  Widths
+// up to 512 (ten tile pairs of 128) and ragged m are handled in the kernel
+// with no padded copy; bf16 is staged raw and converted on the read.
+#include "panel_cross.cuh"
 
 namespace {
 
-template <typename S, int T>
-__global__ void __launch_bounds__(cqr2::kThreads)
+template <typename S, int T, int CPE>
+__global__ void __launch_bounds__(cqr2::kThreads, 2)
     gram_partial_kernel(const S* __restrict__ a, float* __restrict__ part, int m, int n,
                         int rows_per_split) {
-  __shared__ __align__(16) float Xi[cqr2::kRows][T];
-  __shared__ __align__(16) float Xj[cqr2::kRows][T];
-  const int nt = (n + T - 1) / T;
   int ti, tj;
-  cqr2::tile_pair(blockIdx.x, nt, ti, tj);
-  const int split = blockIdx.y, b = blockIdx.z;
+  cqr2::tile_pair(blockIdx.x, (n + T - 1) / T, ti, tj);
+  const int sp = blockIdx.y, b = blockIdx.z;
   const S* src = a + (long long)b * m * n;
-  const int r_begin = split * rows_per_split;
+  const int r_begin = sp * rows_per_split;
   const int r_end = min(m, r_begin + rows_per_split);
-
   float acc[T / 16][T / 16];
-#pragma unroll
-  for (int i = 0; i < T / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < T / 16; ++j) acc[i][j] = 0.0f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += cqr2::kRows) {
-    cqr2::load_tile<S, T>(Xi, src, r_end, n, r0, ti * T);
-    if (ti != tj) cqr2::load_tile<S, T>(Xj, src, r_end, n, r0, tj * T);
-    __syncthreads();
-    cqr2::gram_accumulate<T>(Xi, ti == tj ? Xi : Xj, acc);
-    __syncthreads();
-  }
-  float* out = part + ((long long)b * gridDim.y + split) * n * n;
-  cqr2::store_partial<T>(out, n, ti, tj, acc);
+  if (ti == tj)
+    cross::sweep<S, T, CPE, true>(src, r_begin, r_end, n, n, ti, tj, acc, cross::NoHook{});
+  else
+    cross::sweep<S, T, CPE, false>(src, r_begin, r_end, n, n, ti, tj, acc, cross::NoHook{});
+  cross::store<T, true>(part + ((long long)b * gridDim.y + sp) * n * n, n, n, ti, tj, acc);
 }
 
-template <typename S, int T>
+template <typename S, int T, int CPE>
 cudaError_t launch(const S* a, float* part, float* g, int batch, int m, int n,
                    int rows_per_split, int splits, cudaStream_t stream) {
   const int nt = (n + T - 1) / T;
   const dim3 grid(nt * (nt + 1) / 2, splits, batch);
-  gram_partial_kernel<S, T><<<grid, cqr2::kThreads, 0, stream>>>(a, part, m, n, rows_per_split);
-  const cudaError_t err = cudaGetLastError();
+  constexpr int smem = cross::kSweepSmem<S, T>;
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_kernel<S, T, CPE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  gram_partial_kernel<S, T, CPE>
+      <<<grid, cqr2::kThreads, smem, stream>>>(a, part, m, n, rows_per_split);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return cqr2::launch_fold(part, g, batch, splits, n, stream);
+}
+
+template <typename S, int T>
+cudaError_t by_copy(const S* a, float* part, float* g, int batch, int m, int n,
+                    int rows_per_split, int splits, cudaStream_t stream) {
+  return tiles::by_copy(a, n, (long long)m * n, batch, [&](auto cpe) {
+    return launch<S, T, decltype(cpe)::value>(a, part, g, batch, m, n, rows_per_split, splits,
+                                              stream);
+  });
 }
 
 template <typename S>
 cudaError_t dispatch(const S* a, float* part, float* g, int batch, int m, int n,
                      int rows_per_split, int splits, cudaStream_t stream) {
   switch (cqr2::tile_for(n)) {
-    case 32: return launch<S, 32>(a, part, g, batch, m, n, rows_per_split, splits, stream);
-    case 64: return launch<S, 64>(a, part, g, batch, m, n, rows_per_split, splits, stream);
-    default: return launch<S, 128>(a, part, g, batch, m, n, rows_per_split, splits, stream);
+    case 32: return by_copy<S, 32>(a, part, g, batch, m, n, rows_per_split, splits, stream);
+    case 64: return by_copy<S, 64>(a, part, g, batch, m, n, rows_per_split, splits, stream);
+    default: return by_copy<S, 128>(a, part, g, batch, m, n, rows_per_split, splits, stream);
   }
 }
 
@@ -79,7 +86,7 @@ cudaError_t dispatch(const S* a, float* part, float* g, int batch, int m, int n,
 
 // a: (batch, m, n) f32 or bf16; part: (batch, splits, n, n) f32 scratch;
 // g: (batch, n, n) f32.  Split s covers rows [s * rows_per_split, ...).
-// Returns the launch's cudaError_t.
+// Returns the first launch's cudaError_t.
 extern "C" int repro_gram(const void* a, void* part, void* g, int is_bf16, int batch, int m,
                           int n, int rows_per_split, int splits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,28 +1,38 @@
-// The panel_cross sweep S = A[:, :split]^T A of a batch of tall blocks,
-// f32 accumulation, shared by panel_cross.cu (the blocked QR's prime) and
-// trailing_update.cu (the lookahead S of the stored A_new).
+// The cross sweep of a batch of tall blocks, f32 accumulation: one CTA's
+// tile of X^T X over one row split, shared by panel_cross.cu (the blocked
+// QR's prime S = A[:, :split]^T A), trailing_update.cu (the lookahead S of
+// the stored A_new), gram.cu (G = A^T A on the upper-triangle tile pairs)
+// and pad_cross.cu (S of A widened by zero columns, writing A_pad from the
+// staged chunks).  Each of them keeps its own __global__ entry around
+// sweep() and enumerates its own tiles; a template flag (kSkip) skips the
+// blocks below a Gram's diagonal and a functor (on_chunk) adds pad_cross's
+// write.
 //
-// Arithmetic (the contract of cross_tiles.cuh): each partial S[i][j] is one
-// f32 register summed with __fmaf_rn over its split's rows in row order;
-// the rows are split by _launch.cross_split (a function of (batch, m) only)
-// and the splits folded in index order by fold_rect.  No atomics.
+// Arithmetic: each partial entry is one f32 register summed with __fmaf_rn
+// over its split's rows in row order, the chunks' zero-filled rows past
+// the split's end included.  The cross kernels split the rows by
+// _launch.cross_split and fold with fold_rect (the contract of
+// cross_tiles.cuh); gram splits by _launch.row_split and folds with
+// cqr2::fold_partials (the contract of cqr2_tiles.cuh).  No atomics.
 //
-// Design.  Every (row tile I of S, column tile J of A, split, matrix) is a
-// CTA of 256 threads with a 128 x 128 tile of S (at n > 64), 8 x 8 a
-// thread.  A thread's rows and columns come in groups of four consecutive
-// indices (4t..4t+3 and 64+4t.., cqr2::Axis), so one row of a chunk costs
-// four 128-bit shared reads for 64 FMAs; the reads of the I tile are
+// Design.  Every (row tile I, column tile J, split, matrix) is a CTA of 256
+// threads with a 128 x 128 tile (at widths > 64), 8 x 8 a thread.  A
+// thread's rows and columns come in groups of four consecutive indices
+// (4t..4t+3 and 64+4t.., cqr2::Axis), so one row of a chunk costs four
+// 128-bit shared reads for 64 FMAs; the reads of the I tile are
 // broadcasts.  The split's rows stream through a ring of kStages chunks of
 // kChunk rows, copied with cp.async (16 bytes where the base and strides
 // allow it, else 4, zero-filled through the source size past the split's
 // last row and A's last column), so the copies of the next kStages - 1
 // chunks are in flight while one chunk's FMAs run: one barrier per chunk.
-// The diagonal CTA (I = J) stages one tile and reads it twice.  The ring
-// takes 96 KiB, and __launch_bounds__ keeps two CTAs on an SM (128
-// registers).  Measured on an H100, 32-row chunks beat 16 (half the
-// barriers) and a full unroll of the chunk overflowed the instruction
-// cache.  A's rows may be strided (a column slice of a wider matrix goes in
-// without a copy); bf16 is staged raw and converted on the shared read.
+// The diagonal CTA (I = J) stages one tile and reads it twice; for a Gram
+// it also skips the 4 x 4 blocks of the lower 64 x 64 quadrant (48 FMAs a
+// row for 64 at T = 128).  The ring takes 96 KiB, and __launch_bounds__
+// keeps two CTAs on an SM (128 registers).  Measured on an H100, 32-row
+// chunks beat 16 (half the barriers) and a full unroll of the chunk
+// overflowed the instruction cache.  A's rows may be strided (a column
+// slice of a wider matrix goes in without a copy); bf16 is staged raw and
+// converted on the shared read.
 #pragma once
 
 #include "async_tiles.cuh"
@@ -47,21 +57,23 @@ __device__ __forceinline__ void stage(S* X, const S* src, int r0, int r_end, int
   }
 }
 
-template <typename S, int T, int CPE>
-__global__ void __launch_bounds__(cqr2::kThreads, 2)
-    cross_partial_kernel(const S* __restrict__ a, float* __restrict__ part, int m, int n,
-                         int split, long long lda, long long a_bs, int rows_per_split) {
+// The row sweep of one CTA: acc[i][j] = sum over rows r of its split, in
+// order, of X[r][ti * T + X::index(ty, i)] * X[r][tj * T + X::index(tx, j)]
+// with X = A zero outside rows < r_end and columns < n.  kSkip (a diagonal
+// tile, ti == tj) leaves out the G x G blocks below the diagonal (i / G >
+// j / G), whose entries no caller reads; their acc stays zero.  After
+// chunk c has landed, every thread calls on_chunk(tile, r0) with the
+// staged (kChunk x T) chunk of column tile tj at rows r0.. (zero-filled),
+// before the chunk's FMAs: pad_cross writes A_pad from it.
+template <typename S, int T, int CPE, bool kSkip, typename OnChunk>
+__device__ __forceinline__ void sweep(const S* src, int r_begin, int r_end, int n, long long lda,
+                                      int ti, int tj, float (&acc)[T / 16][T / 16],
+                                      OnChunk&& on_chunk) {
   using X = cqr2::Axis<T>;
   constexpr int MT = X::MT, G = X::G;
   extern __shared__ __align__(16) unsigned char smem[];
   S(*ring)[2][kChunk * T] = reinterpret_cast<S(*)[2][kChunk * T]>(smem);  // [kStages]
-  const int nj = (n + T - 1) / T;
-  const int ti = blockIdx.x / nj, tj = blockIdx.x % nj;
   const bool diag = ti == tj;
-  const int sp = blockIdx.y, b = blockIdx.z;
-  const S* src = a + (long long)b * a_bs;
-  const int r_begin = sp * rows_per_split;
-  const int r_end = min(m, r_begin + rows_per_split);
   const int chunks = (r_end - r_begin + kChunk - 1) / kChunk;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
@@ -74,7 +86,6 @@ __global__ void __launch_bounds__(cqr2::kThreads, 2)
     tiles::commit();
   };
 
-  float acc[MT][MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -88,6 +99,7 @@ __global__ void __launch_bounds__(cqr2::kThreads, 2)
     issue(c + kStages - 1);
     const S* xj_tile = ring[c % kStages][0];
     const S* xi_tile = diag ? xj_tile : ring[c % kStages][1];
+    on_chunk(xj_tile, r_begin + c * kChunk);
 #pragma unroll 8  // a full unroll outgrows the instruction cache
     for (int r = 0; r < kChunk; ++r) {
       float xi[MT], xj[MT];
@@ -99,23 +111,55 @@ __global__ void __launch_bounds__(cqr2::kThreads, 2)
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < MT; ++j) acc[i][j] = __fmaf_rn(xi[i], xj[j], acc[i][j]);
+        for (int j = 0; j < MT; ++j)
+          if (!kSkip || i / G <= j / G) acc[i][j] = __fmaf_rn(xi[i], xj[j], acc[i][j]);
     }
   }
   tiles::wait<0>();
+}
 
-  float* out = part + ((long long)b * gridDim.y + sp) * split * n;
+struct NoHook {
+  template <typename S>
+  __device__ __forceinline__ void operator()(const S*, int) const {}
+};
+
+// Write acc of tile (ti, tj) into a (rows x cols) row-major partial: the
+// entries inside it and, with kUpper, only those on or above the diagonal
+// (all that fold_partials reads).
+template <int T, bool kUpper = false>
+__device__ __forceinline__ void store(float* out, int rows, int cols, int ti, int tj,
+                                      const float (&acc)[T / 16][T / 16]) {
+  using X = cqr2::Axis<T>;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int i = 0; i < X::MT; ++i) {
     const int gi = ti * T + X::index(ty, i);
-    if (gi >= split) continue;
+    if (gi >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < MT; ++j) {
+    for (int j = 0; j < X::MT; ++j) {
       const int gj = tj * T + X::index(tx, j);
-      if (gj < n) out[(long long)gi * n + gj] = acc[i][j];
+      if (gj < cols && (!kUpper || gi <= gj)) out[(long long)gi * cols + gj] = acc[i][j];
     }
   }
 }
+
+template <typename S, int T, int CPE>
+__global__ void __launch_bounds__(cqr2::kThreads, 2)
+    cross_partial_kernel(const S* __restrict__ a, float* __restrict__ part, int m, int n,
+                         int split, long long lda, long long a_bs, int rows_per_split) {
+  const int nj = (n + T - 1) / T;
+  const int ti = blockIdx.x / nj, tj = blockIdx.x % nj;
+  const int sp = blockIdx.y, b = blockIdx.z;
+  const int r_begin = sp * rows_per_split;
+  float acc[T / 16][T / 16];
+  sweep<S, T, CPE, false>(a + (long long)b * a_bs, r_begin, min(m, r_begin + rows_per_split), n,
+                          lda, ti, tj, acc, NoHook{});
+  store<T>(part + ((long long)b * gridDim.y + sp) * split * n, split, n, ti, tj, acc);
+}
+
+// Dynamic shared memory of one sweep CTA: the ring of two staged tiles.
+template <typename S, int T>
+constexpr int kSweepSmem = kStages * 2 * kChunk * T * (int)sizeof(S);
 
 template <typename S, int T, int CPE>
 cudaError_t cross_launch(const S* a, float* part, float* s, int batch, int m, int n,
@@ -123,7 +167,7 @@ cudaError_t cross_launch(const S* a, float* part, float* s, int batch, int m, in
                          int splits, cudaStream_t stream) {
   const int ni = (split + T - 1) / T, nj = (n + T - 1) / T;
   const dim3 grid(ni * nj, splits, batch);
-  constexpr int smem = kStages * 2 * kChunk * T * (int)sizeof(S);
+  constexpr int smem = kSweepSmem<S, T>;
   cudaError_t err = cudaFuncSetAttribute(cross_partial_kernel<S, T, CPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -166,6 +166,18 @@ def test_row_split_covers_every_row_once(batch, m, width):
     assert 1 <= splits <= 65535
 
 
+# The Gram kernels' split at the main paths' shapes.  gram's partials and
+# fused_apply_gram's G' are summed over these rows in order, so every R bit
+# of the TSQR paths (and G' == gram(apply_right)) rests on them: a change
+# must be deliberate, never a side effect of a kernel's redesign.
+@pytest.mark.parametrize("batch,m,width,want", [
+    (8, 1 << 19, 128, (7968, 66)), (8, 1 << 17, 128, (2016, 66)), (8, 1 << 17, 32, (2016, 66)),
+    (8, 1 << 17, 512, (18752, 7)), (1, 1000, 96, (32, 32)),
+])
+def test_row_split_is_pinned_at_the_main_path_shapes(batch, m, width, want):
+    assert _launch.row_split(batch, m, width) == want
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

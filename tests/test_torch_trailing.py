@@ -147,6 +147,15 @@ def test_cross_split_covers_every_row_once(batch, m):
     assert 1 <= splits <= 65535
 
 
+# The cross kernels' split at the blocked QR's shapes: panel_cross,
+# trailing_update's lookahead and pad_cross's real columns are summed over
+# these rows in order, so the blocked R bits and pipeline == eager rest on
+# them: a change must be deliberate, never a side effect of a redesign.
+@pytest.mark.parametrize("batch,m,want", [(8, 1 << 17, (4000, 33)), (1, 1000, (32, 32))])
+def test_cross_split_is_pinned_at_the_main_path_shapes(batch, m, want):
+    assert _launch.cross_split(batch, m) == want
+
+
 def test_traffic_records_equal_reference(rng):
     """Same ops, sweeps and bytes per call as the reference."""
     (ja, ta), (jq, tq), (jw, tw) = _operands(rng, (4,), 32, 4, 10, "float32")
