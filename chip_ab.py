@@ -15,18 +15,21 @@ from fixed seeds on the card and times, with TF32 off:
   ``apply_right`` at 8 × 2^19 × 128; ``trailing_update`` on the strided
   8 × 2^17 × 384 trailing block of general_full with the 128-column
   lookahead; ``fused_apply_gram`` at 8 × 2^19 × 128 with ``want_q`` False
-  and True;
+  and True; ``combine_gram`` at 8 × n × n, n = 32, 128 and 512, f32 and
+  bf16;
 * blocked ``factorize`` at general_full (8 × 2^17 × 512, panels of 128,
   ``use_pallas``) through the pipeline and the eager driver and at
   general_ragged (8 × 2^17 × 480) through the pipeline, the kernel layer's
-  explicit-Q ``ops.cholesky_qr2`` and TSQR ``factorize`` (redundant
+  explicit-Q ``ops.cholesky_qr2``, TSQR ``factorize`` (redundant
   butterfly, ``local_r="cqr2_pallas"``) at powersgd_panel (8 × 2^19 ×
-  128): host clock around calls ending in a synchronize, median of 5 warm
-  runs.
+  128) and the batched TSQR of 4 × 8 × 2^17 × 32: host clock around calls
+  ending in a synchronize, median of 5 warm runs.  Where a checkout
+  replays its cached programs as CUDA graphs, the pipeline and the batched
+  TSQR are replays there.
 
 Each process also prints a SHA-256 of the bytes of every output of each
-kernel it times (G; S and A_pad; Q; A_new and S; G′) and of each call's R,
-all from the fixed seeds, so checkouts whose kernels keep the same bits
+kernel it times (G; S and A_pad; Q; A_new and S; G′; combine_gram's G) and
+of each call's R, all from the fixed seeds, so checkouts whose kernels keep the same bits
 print the same hashes.  Each process prints one JSON line; the last line
 is a JSON object with every run's numbers in the order given, whether the
 hashes of all runs agree (and which differ), and the card's name and
@@ -96,6 +99,7 @@ def one(root: Path) -> dict:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.apply_right import apply_right
+    from repro_torch.kernels.combine_gram import combine_gram
     from repro_torch.kernels.fused_apply_gram import fused_apply_gram
     from repro_torch.kernels.gram import gram
     from repro_torch.kernels.trailing_update import pad_cross, panel_cross, trailing_update
@@ -105,9 +109,9 @@ def one(root: Path) -> dict:
     _build.build_all()
     gen = torch.Generator(device="cuda")
 
-    def randn(shape, seed):
+    def randn(shape, seed, dtype=torch.float32):
         gen.manual_seed(seed)
-        return torch.randn(shape, generator=gen, device="cuda")
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     full = randn(GENERAL_FULL, 4000)
     ragged = randn(GENERAL_RAGGED, 4001)
@@ -130,6 +134,11 @@ def one(root: Path) -> dict:
         "fused_apply_gram": lambda: fused_apply_gram(a, w, want_q=False),
         "fused_apply_gram_want_q": lambda: fused_apply_gram(a, w),
     }
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (32, 128, 512):
+            r1, r2 = (randn((P, n, n), 700 + n + i, dtype) for i in (0, 1))
+            name = f"combine_gram_n{n}_{str(dtype).removeprefix('torch.')}"
+            kernels[name] = lambda r1=r1, r2=r2: combine_gram(r1, r2)
     out = {"root": str(root)}
     hashes = {}
     for name, fn in kernels.items():
@@ -146,6 +155,8 @@ def one(root: Path) -> dict:
     calls["cholesky_qr2_powersgd_panel"] = lambda: ops.cholesky_qr2(a, use_pallas=True)
     tsqr = QRConfig(variant="redundant", local_r="cqr2_pallas")
     calls["tsqr_powersgd_panel"] = lambda: factorize(a, tsqr)
+    stack = randn((4, P, 1 << 17, 32), 2004)
+    calls["tsqr_batched_4x_paper_fig"] = lambda: factorize(stack, tsqr)
     for name, fn in calls.items():
         out[f"{name}_ms"] = _host_ms(torch, fn)
         res = fn()

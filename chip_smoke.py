@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five paths, each driven with the launch counts set to 0 just before it and
+Six paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -18,6 +18,7 @@ read just after:
   ``gram``.
 * **combine_gram**: the Gram-butterfly's combine G = R₁ᵀR₁ + R₂ᵀR₂ through
   its entry point ``ops.combine_gram(use_pallas=True)``, at 8 × n × n.
+* **Replay**: the cached programs captured as CUDA graphs and replayed.
 * **Coded TSQR** (``QRConfig(redundancy="coded", parity=3)``) at 8 × 2^19 ×
   128 and 8 × 2^17 × 32, fault-free and with deaths, stragglers, silent
   corruption (``observed=``) and an over-budget loss, on ``gram`` and
@@ -57,6 +58,12 @@ Phases (each raises on failure; the script then exits non-zero):
    and 1 prime + K − 1 trailing sweeps per factorization;
 6. hold ``combine_gram`` against its plain version (f32 and bf16), against
    a float64 product, for exact symmetry and for the same bits on a rerun;
+   then drive the cached programs (``repro_torch.replay``): the blocked
+   pipeline at general_full and general_ragged, the batched TSQR at 4 × 8 ×
+   2^17 × 32, ``ft_allreduce_jit`` and ``coded_allreduce_jit``, each cold
+   (one CUDA-graph capture), warm (one replay, no capture) and eagerly
+   issued; check the capture and dispatch counts, the replay's kernel
+   launches, replay ≡ eager bit for bit, and time replay against eager;
 7. drive coded TSQR and the coded blocked QR: fault-free R equal to the
    butterfly's bit for bit, the wire observed through ``InstrumentedComm``
    equal to the plan, validity and ``detected`` as the plans and the
@@ -156,10 +163,17 @@ MAIN_ENTRY = {"gram": "19gram_partial_kernelIfLi128ELi4E", "fused_apply_gram":
               "trailing_update": "13update_kernelIfLi128ELi4E",
               "panel_cross": "20cross_partial_kernelIfLi128ELi4E",
               "pad_cross": "16pad_cross_kernelIfLi128ELi4E",
-              "combine_gram": "19combine_gram_kernelIfLi64E"}
+              "combine_gram": "19combine_gram_kernelIfLi64ELi4E"}
 # combine_gram's widths (8 matrices each; n <= 512 in every TSQR use) and the
 # coded scheme's parity counts.
 COMBINE_WIDTHS = (32, 128, 512)
+# the replay phase's shapes beside general_full and general_ragged: the
+# batched TSQR of B = 4 and B = 1 paper_fig-sized stacks (paper_fig's call
+# is host-bound), and general_full with its rows cut 32-fold
+REPLAY_TSQR = {"4 x paper_fig": (4, P, 1 << 17, 32), "paper_fig": (1, P, 1 << 17, 32)}
+REPLAY_BLOCKED = {"general_full": BLOCKED_SHAPES["general_full"],
+                  "general_ragged": BLOCKED_SHAPES["general_ragged"],
+                  "general_full / 32": (P, 1 << 12, 512)}
 CODED_PARITY = 3
 BLOCKED_PARITY = 2
 
@@ -197,6 +211,7 @@ def main() -> int:
     smoke.kernel_checks()
     smoke.blocked_kernel_checks()
     smoke.combine_gram_path()
+    smoke.replay_path()
     smoke.main_path()
     smoke.blocked_path()
     smoke.coded_tsqr_path()
@@ -235,6 +250,7 @@ class Smoke:
         self.times: dict[tuple[str, str], dict] = {}
         self.e2e: dict[tuple[str, str], float] = {}
         self.blocked_full = None      # general_full's input and float64 R
+        self.replay_ms: dict[str, tuple[float, float]] = {}  # label -> (replay, eager)
         self.ptxas: dict[str, str] = {}  # kernel -> ptxas -v of its main-path instantiation
 
     # -- helpers --------------------------------------------------------------
@@ -261,6 +277,16 @@ class Smoke:
             end.synchronize()
             samples.append(start.elapsed_time(end) / inner)
         return statistics.median(samples)
+
+    def same_bits(self, got, want) -> bool:
+        """Equal dtype, shape and bytes (NaN payloads included)."""
+        torch = self.torch
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        if got.is_floating_point():
+            as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+            got, want = got.view(as_int), want.view(as_int)
+        return torch.equal(got, want)
 
     def rel_err(self, got, want) -> float:
         if want.dtype != self.torch.float64:
@@ -795,8 +821,137 @@ class Smoke:
                             lambda: ref.combine_gram(r1, r2), None)
         row["two_calls_ms"] = self.time_ms(two)
         row["library_note"] = "none: no one call; torch.baddbmm(r2.mT @ r2, r1.mT, r1) is two"
+        row["ptxas"] = self.ptxas["combine_gram"]
         self.times[("combine_gram", "8x512")] = row
         log(f"[time] combine_gram 8x512 {json.dumps(row)}")
+
+    # -- phase 6b: the cached programs (CUDA-graph replay) --------------------
+
+    def replay_path(self) -> None:
+        """The cached programs of ``repro_torch.replay``: the blocked
+        pipeline at general_full and general_ragged, the batched TSQR at
+        REPLAY_TSQR and ``ft_allreduce_jit`` / ``coded_allreduce_jit``.  For
+        each: one capture (trace) on the cold call and none on a warm
+        repeat, one dispatch a call, the replay equal bit for bit to the same
+        program issued eagerly (``replay.eager()``), the replay's kernel
+        launches; then replay and eager times, the cache's bytes and the
+        peak of allocated memory."""
+        torch = self.torch
+        from repro_torch import replay
+        from repro_torch.collective import (
+            FaultSpec,
+            SimComm,
+            coded_allreduce,
+            coded_allreduce_jit,
+            ft_allreduce,
+            ft_allreduce_jit,
+            make_coded_plan,
+        )
+        from repro_torch.qr import QRConfig, factorize
+        from repro_torch.qr.blocked import PIPELINE_NAME
+
+        d, counts = self.dispatch, self.dispatch.launches
+        replay.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+
+        def cold_warm(label, name, fn, want_launches):
+            """fn() cold (capture), warm (replay) and inside replay.eager();
+            the counts of each, the three results."""
+            with d.track_dispatch() as t_cold:
+                cold = fn()
+            torch.cuda.synchronize()
+            before = counts.as_dict()
+            with d.track_dispatch() as t_warm:
+                warm = fn()
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in counts.as_dict().items() if v - before[k]}
+            with replay.eager():
+                eager = fn()
+            torch.cuda.synchronize()
+            check(t_cold.traces == {name: 1}, f"{label}: cold traces {dict(t_cold.traces)}")
+            check(not t_warm.traces, f"{label}: a warm repeat traced {dict(t_warm.traces)}")
+            check(t_cold.dispatches[name] == 1 and t_warm.dispatches == {name: 1},
+                  f"{label}: dispatches cold {dict(t_cold.dispatches)} warm "
+                  f"{dict(t_warm.dispatches)}")
+            check(launched == want_launches, f"{label}: replay launched {launched}, want "
+                  f"{want_launches}")
+            log(f"[replay] {label}: cold {t_cold.as_dict()}; warm {t_warm.as_dict()}; "
+                f"replay launches {launched}")
+            return cold, warm, eager
+
+        for seed, (name, shape) in enumerate(REPLAY_BLOCKED.items(), 5000):
+            a = self.randn(shape, seed)
+            cfg = QRConfig(panel_width=PANEL, use_pallas=True)
+            k_panels = -(-a.shape[-1] // PANEL)
+            prime = "pad_cross" if a.shape[-1] < k_panels * PANEL else "panel_cross"
+            label = f"blocked pipeline {name} {tuple(a.shape)}"
+            cold, warm, eager = cold_warm(label, PIPELINE_NAME, lambda a=a: factorize(a, cfg), {
+                prime: 1, "trailing_update": k_panels - 1, "gram": k_panels})
+            for what, res in (("replay", warm), ("capture call", cold)):
+                check(torch.equal(res.r, eager.r) and torch.equal(res.valid, eager.valid),
+                      f"{label}: {what} != eager-issued pipeline")
+            log(f"[replay] {label}: replay == capture call == eager-issued pipeline bit for bit")
+            self.profile(f"{label} replay", lambda a=a: factorize(a, cfg))
+            with replay.eager():
+                self.profile(f"{label} eager", lambda a=a: factorize(a, cfg))
+            self.replay_times(label, lambda a=a: factorize(a, cfg))
+            del a, cold, warm, eager
+
+        cfg = QRConfig(local_r="cqr2_pallas")
+        for seed, (name, shape) in enumerate(REPLAY_TSQR.items(), 5010):
+            a = self.randn(shape, seed)
+            label = f"batched TSQR {name} {tuple(a.shape)}"
+            cold, warm, eager = cold_warm(label, "tsqr_batched", lambda a=a: factorize(a, cfg),
+                                          {"gram": 1, "fused_apply_gram": 1})
+            for what, res in (("replay", warm), ("capture call", cold)):
+                check(torch.equal(res.r, eager.r), f"{label}: {what} != eager")
+            log(f"[replay] {label}: replay == capture call == eager bit for bit")
+            self.profile(f"{label} replay", lambda a=a: factorize(a, cfg))
+            with replay.eager():
+                self.profile(f"{label} eager", lambda a=a: factorize(a, cfg))
+            self.replay_times(label, lambda a=a: factorize(a, cfg))
+            del a
+
+        x = self.randn((P, 128, 128), 5003)
+        comm = SimComm(P, x.device)
+        for op in ("sum", "gram_sum"):
+            label = f"ft_allreduce_jit {op} {tuple(x.shape)}"
+            cold, warm, eager = cold_warm(label, "ft_allreduce",
+                                          lambda op=op: ft_allreduce_jit(x, comm, op=op), {})
+            plain = ft_allreduce(x, comm, op=op)
+            for what, res in (("replay", warm), ("capture call", cold), ("eager", eager)):
+                check(all(self.same_bits(g, w) for g, w in zip(res, plain)),
+                      f"{label}: {what} != ft_allreduce")
+            log(f"[replay] {label}: replay == ft_allreduce bit for bit")
+        world = SimComm(P + BLOCKED_PARITY, x.device)
+        xw = self.randn((P + BLOCKED_PARITY, 128, 128), 5004)
+        for faults in (None, {1: 0, 6: 1}):
+            plan = make_coded_plan(P, BLOCKED_PARITY, FaultSpec.of(faults) if faults else None)
+            label = f"coded_allreduce_jit sum c={BLOCKED_PARITY} deaths={faults or {}}"
+            cold, warm, eager = cold_warm(label, "coded_allreduce", lambda plan=plan:
+                                          coded_allreduce_jit(xw, world, plan=plan), {})
+            plain = coded_allreduce(xw, world, plan=plan)
+            for what, res in (("replay", warm), ("capture call", cold), ("eager", eager)):
+                check(all(self.same_bits(g, w) for g, w in zip(res, plain)),
+                      f"{label}: {what} != coded_allreduce")
+            log(f"[replay] {label}: replay == coded_allreduce bit for bit")
+        self.launches["replay"] = counts.as_dict()
+        log(f"[replay] cached programs hold {replay.cache_bytes()} bytes; peak allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+
+    def replay_times(self, label: str, fn) -> None:
+        """Host-clock medians of the replay and of the eager-issued program."""
+        from repro_torch import replay
+
+        med, lo, hi = self._median_ms(fn)
+        with replay.eager():
+            fn()
+            e_med, e_lo, e_hi = self._median_ms(fn)
+        self.replay_ms[label] = (med, e_med)
+        log(f"[e2e] {label}: replay median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); eager "
+            f"median {e_med:.3f} ms (min {e_lo:.3f}, max {e_hi:.3f}), 5 runs each")
 
     # -- phase 7: the coded scheme -------------------------------------------
 

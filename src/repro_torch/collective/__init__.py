@@ -5,7 +5,9 @@ paper's 2^s − 1 tolerance accounting (:mod:`.faults`), host-side routing
 for the four variants (:mod:`.plan`), the combine algebra
 (:mod:`.combiners`), the simulated-ranks backend (:mod:`.comm`), and the
 plan executor with validity threading and self-healing restores
-(:mod:`.engine`), and checksum-coded redundancy (:mod:`.coded`).
+(:mod:`.engine`), and checksum-coded redundancy (:mod:`.coded`); each
+all-reduce also as a cached program (``ft_allreduce_jit``,
+``coded_allreduce_jit``).
 """
 from .combiners import (
     COMBINERS,
@@ -25,6 +27,7 @@ from .coded import (
     CodedCombiner,
     CodedPlan,
     coded_allreduce,
+    coded_allreduce_jit,
     coded_weights,
     encode_parity,
     execute_coded,
@@ -35,6 +38,7 @@ from .comm import Comm, SimComm
 from .engine import (
     execute_plan,
     ft_allreduce,
+    ft_allreduce_jit,
     recover_payload,
     replica_fetch,
 )
@@ -71,11 +75,13 @@ __all__ = [
     "SumCombiner",
     "VARIANTS",
     "coded_allreduce",
+    "coded_allreduce_jit",
     "coded_weights",
     "encode_parity",
     "execute_coded",
     "execute_plan",
     "ft_allreduce",
+    "ft_allreduce_jit",
     "get_combiner",
     "ilog2",
     "leaf_bytes",

@@ -6,7 +6,7 @@ algebra it needs in place of ``jax.tree``.
 """
 from __future__ import annotations
 
-__all__ = ["leaves", "tree_map"]
+__all__ = ["leaves", "structure", "tree_map", "unflatten"]
 
 
 def tree_map(fn, tree, *rest):
@@ -21,3 +21,24 @@ def leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in leaves(sub)]
     return [tree]
+
+
+def structure(tree):
+    """``tree``'s nesting with its leaves left out: hashable, a cache key."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree), tuple(structure(sub) for sub in tree)
+    return None
+
+
+def unflatten(struct, flat):
+    """The tree of :func:`structure` ``struct`` whose leaves, in
+    :func:`leaves` order, are ``flat``."""
+    it = iter(flat)
+
+    def build(s):
+        if s is None:
+            return next(it)
+        kind, subs = s
+        return kind(build(sub) for sub in subs)
+
+    return build(struct)

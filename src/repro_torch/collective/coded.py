@@ -39,7 +39,8 @@ every rank ends ``valid=False`` with NaN payloads.
 On one card every rank is a row of a (W,)-leading tensor
 (:class:`~repro_torch.collective.comm.SimComm`).  The routing is
 host-static, and ``detected`` stays a device tensor: a coded reduction
-reads nothing back to the host.
+reads nothing back to the host.  :func:`coded_allreduce_jit` runs one as a
+cached program (:mod:`repro_torch.replay`: a CUDA graph on the card).
 """
 from __future__ import annotations
 
@@ -49,9 +50,12 @@ import functools
 import numpy as np
 import torch
 
-from ._tree import leaves, tree_map
+from repro_torch import replay
+from repro_torch.kernels import dispatch as _dispatch
+
+from ._tree import leaves, structure, tree_map, unflatten
 from .combiners import Combiner, get_combiner
-from .comm import Comm, check_device
+from .comm import Comm, SimComm, check_device
 from .engine import _poison, _wire_codec
 from .faults import FaultSpec
 from .plan import leaf_bytes, payload_numel
@@ -60,6 +64,7 @@ __all__ = [
     "CodedCombiner",
     "CodedPlan",
     "coded_allreduce",
+    "coded_allreduce_jit",
     "coded_weights",
     "encode_parity",
     "execute_coded",
@@ -600,3 +605,37 @@ def coded_allreduce(x, comm: Comm, *, op: Combiner | str = "sum", n_parity: int 
     combiner = get_combiner(op)
     val, valid, detected = execute_coded(x, comm, plan, combiner, observed=observed)
     return combiner.tree_finalize(val, plan.n_data), valid, detected
+
+
+def coded_allreduce_jit(x, comm: Comm, *, op: Combiner | str = "sum",
+                        n_parity: int | None = None, fault_spec: FaultSpec | None = None,
+                        plan: CodedPlan | None = None, observed=None):
+    """:func:`coded_allreduce` as a cached program, with the contract of
+    :func:`~repro_torch.collective.engine.ft_allreduce_jit`: one per (comm,
+    plan, combiner, payload and ``observed`` structures) and the shapes,
+    dtypes and device, a repeat call builds nothing
+    (``trace_count("coded_allreduce")``), and each call counts one
+    ``coded_allreduce`` dispatch.  SimComm only."""
+    if not isinstance(comm, SimComm):
+        raise ValueError(
+            "coded_allreduce_jit builds a standalone program, which only the SimComm "
+            f"backend supports; got {type(comm).__name__}"
+        )
+    if plan is None:
+        if n_parity is None:
+            raise ValueError("coded_allreduce_jit needs a plan or n_parity")
+        plan = make_coded_plan(comm.n_ranks - n_parity, n_parity, fault_spec)
+    combiner = get_combiner(op)
+    struct = structure(x)
+    o_struct = None if observed is None else structure(observed)
+    flat = leaves(x)
+    o_flat = [] if observed is None else leaves(observed)
+
+    def body(*args):
+        obs = None if observed is None else unflatten(o_struct, args[len(flat):])
+        return coded_allreduce(unflatten(struct, args[:len(flat)]), comm, op=combiner,
+                               plan=plan, observed=obs)
+
+    _dispatch.note_dispatch("coded_allreduce")
+    return replay.run("coded_allreduce", (comm, plan, combiner, struct, o_struct), body,
+                      tuple(flat + o_flat))

@@ -5,7 +5,8 @@
 :class:`~repro_torch.collective.combiners.Combiner`, threading validity bits
 alongside every payload and performing the Self-Healing restore rounds.
 :func:`ft_allreduce` is the entry point for arithmetic reductions over the
-same butterfly.
+same butterfly, and :func:`ft_allreduce_jit` the same reduction as a cached
+program (:mod:`repro_torch.replay`: a CUDA graph on the card).
 
 **Fault-free fast path.**  When the host plan proves fault-freeness
 (:attr:`Plan.is_fault_free`), :func:`execute_plan` runs a straight-line
@@ -29,14 +30,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._tree import leaves, tree_map
+from repro_torch import replay
+from repro_torch.kernels import dispatch as _dispatch
+
+from ._tree import leaves, structure, tree_map, unflatten
 from .combiners import Combiner, get_combiner
-from .comm import Comm, check_device
+from .comm import Comm, SimComm, check_device
 from .faults import NEVER, FaultSpec
 from .packing import pack_sym, unpack_sym
 from .plan import Plan, _split_rounds, make_plan
 
-__all__ = ["execute_plan", "ft_allreduce", "recover_payload", "replica_fetch"]
+__all__ = ["execute_plan", "ft_allreduce", "ft_allreduce_jit", "recover_payload",
+           "replica_fetch"]
 
 
 def _poison(leaf: torch.Tensor) -> torch.Tensor:
@@ -236,3 +241,45 @@ def ft_allreduce(
     combiner = get_combiner(op)
     val, valid = execute_plan(x, comm, plan, combiner, fast=fast)
     return combiner.tree_finalize(val, plan.n_ranks), valid
+
+
+def ft_allreduce_jit(
+    x,
+    comm: Comm,
+    *,
+    op: Combiner | str = "sum",
+    variant: str = "redundant",
+    fault_spec: FaultSpec | None = None,
+    plan: Plan | None = None,
+    fast: bool | None = None,
+    mesh=None,
+):
+    """:func:`ft_allreduce` as a cached program: one per (comm, plan,
+    combiner, payload structure) and the payload's shapes, dtypes and
+    device (:mod:`repro_torch.replay`; a CUDA graph on the card).  A repeat
+    call with the same statics builds nothing: ``trace_count("ft_allreduce")``
+    stays put, and each call counts one ``ft_allreduce`` dispatch.  Its
+    result equals :func:`ft_allreduce`'s bit for bit.  SimComm only: a mesh
+    runs the ranks as separate processes, which waits for DistComm."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "ft_allreduce_jit(mesh=...) runs the butterfly across processes, which "
+            "waits for DistComm (ROADMAP A.3b); pass a SimComm"
+        )
+    if not isinstance(comm, SimComm):
+        raise ValueError(
+            f"ft_allreduce_jit builds a standalone program, which only the SimComm "
+            f"backend supports; got {type(comm).__name__}"
+        )
+    if plan is None:
+        plan = make_plan(variant, comm.n_ranks, fault_spec)
+    combiner = get_combiner(op)
+    check_device(x, comm)
+    struct = structure(x)
+
+    def body(*flat):
+        return ft_allreduce(unflatten(struct, flat), comm, op=combiner, plan=plan, fast=fast)
+
+    _dispatch.note_dispatch("ft_allreduce")
+    return replay.run("ft_allreduce", (comm, plan, combiner, fast, struct), body,
+                      tuple(leaves(x)))

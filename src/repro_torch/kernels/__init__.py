@@ -7,7 +7,8 @@
     tensors);
   * :mod:`.ops` — the batched ``use_pallas`` switch and the CQR2 pipeline;
   * :mod:`.ref` — the plain PyTorch versions;
-  * :mod:`.dispatch` — launch counters; :mod:`.traffic` — traffic records;
+  * :mod:`.dispatch` — launch, trace and dispatch counters; :mod:`.traffic` —
+    traffic records;
   * :mod:`._build` — nvcc build and ctypes loading.
 
 Nothing is compiled at import.

@@ -7,7 +7,8 @@ fused: round 1's panel apply also accumulates round 2's Gram
 (:func:`fused_apply_gram`), so the full factorization streams the tall
 operand 3× and the R-only variant (:func:`cholesky_qr2_r`, what the TSQR
 butterfly carries) exactly 2× with no tall intermediate in device memory.
-Every wrapper reports its traffic to :mod:`repro_torch.kernels.traffic`.
+Every wrapper notes one dispatch (:mod:`repro_torch.kernels.dispatch`) and
+its traffic (:mod:`repro_torch.kernels.traffic`), as the reference's do.
 
 ``use_pallas=True`` keeps the reference's spelling and selects the
 hand-written Hopper kernels (``csrc/``); ``False`` runs the plain PyTorch
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from . import dispatch as _dispatch
 from . import ref as _ref
 from . import traffic as _traffic
 from .apply_right import apply_right as _apply_kernel
@@ -52,18 +54,24 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _note(op: str, **traffic_kw) -> None:
+    """Record one wrapper call: a dispatch and its traffic."""
+    _dispatch.note_dispatch(op)
+    _traffic.note(op, **traffic_kw)
+
+
 # -- kernel entry points (batched, kernel/plain switchable) ------------------
 
 def gram(a, *, use_pallas: bool = False):
     out = _gram_kernel(a) if use_pallas else _ref.gram(a)
-    _traffic.note("gram", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    _note("gram", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
 def apply_right(a, w, *, use_pallas: bool = False):
     out = _apply_kernel(a, w) if use_pallas else _ref.apply_right(a, w)
-    _traffic.note("apply_right", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
-                  write_bytes=_nbytes(out))
+    _note("apply_right", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+          write_bytes=_nbytes(out))
     return out
 
 
@@ -80,8 +88,8 @@ def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
         out = (q, g) if want_q else g
     g_out = out[1] if want_q else out
     q_bytes = _nbytes(out[0]) if want_q else 0
-    _traffic.note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
-                  write_bytes=q_bytes + _nbytes(g_out))
+    _note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+          write_bytes=q_bytes + _nbytes(g_out))
     return out
 
 
@@ -90,8 +98,7 @@ def combine_gram(r1, r2, *, use_pallas: bool = False):
     Gram-butterfly's combine.  Recorded as the reference records it: no
     sweep, reading both factors and writing G."""
     out = _combine_kernel(r1, r2) if use_pallas else _ref.combine_gram(r1, r2)
-    _traffic.note("combine_gram", read_bytes=_nbytes(r1) + _nbytes(r2),
-                  write_bytes=_nbytes(out))
+    _note("combine_gram", read_bytes=_nbytes(r1) + _nbytes(r2), write_bytes=_nbytes(out))
     return out
 
 
@@ -131,16 +138,15 @@ def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False):
     out = _trailing_update_raw(a, q, w, next_width=next_width, use_pallas=use_pallas)
     a_new = out[0] if next_width else out
     s_bytes = _nbytes(out[1]) if next_width else 0
-    _traffic.note("trailing_update", sweeps=1,
-                  read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
-                  write_bytes=_nbytes(a_new) + s_bytes)
+    _note("trailing_update", sweeps=1, read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
+          write_bytes=_nbytes(a_new) + s_bytes)
     return out
 
 
 def panel_cross(a, *, split: int, use_pallas: bool = False):
     """Pipeline prime for blocked QR: ``S = A[:, :split]ᵀ A`` in one sweep."""
     out = _panel_cross_raw(a, split=split, use_pallas=use_pallas)
-    _traffic.note("panel_cross", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    _note("panel_cross", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
@@ -149,8 +155,8 @@ def pad_cross(a, *, split: int, out_width: int, use_pallas: bool = False):
     compute ``S = A[:, :split]ᵀ A`` in the same single sweep.  Returns
     ``(a_pad, s)``."""
     out = _pad_cross_raw(a, split=split, out_width=out_width, use_pallas=use_pallas)
-    _traffic.note("pad_cross", sweeps=1, read_bytes=_nbytes(a),
-                  write_bytes=_nbytes(out[0]) + _nbytes(out[1]))
+    _note("pad_cross", sweeps=1, read_bytes=_nbytes(a),
+          write_bytes=_nbytes(out[0]) + _nbytes(out[1]))
     return out
 
 

@@ -17,8 +17,11 @@ Usage::
         ops.cholesky_qr2_r(a, use_pallas=True)
     assert t.tall_sweeps == 2
 
-PyTorch runs eagerly, so every record has ``traces=0``; the field is kept
-so records compare one to one with the reference's.
+Each record also carries its dispatches and the new programs the call
+built (``traces``, :mod:`repro_torch.kernels.dispatch`): a kernel-op
+wrapper records one dispatch and no trace (the kernels are not compiled per
+shape), the blocked pipeline one dispatch for the whole factorization and a
+trace on the call that built its program.
 """
 from __future__ import annotations
 
@@ -60,6 +63,45 @@ class KernelTraffic:
     @property
     def write_bytes(self) -> int:
         return sum(r["write_bytes"] for r in self.records)
+
+    @property
+    def dispatches(self) -> int:
+        """Programs run by the recorded calls (one a kernel-op wrapper, one
+        for a whole pipelined factorization)."""
+        return sum(r["dispatches"] for r in self.records)
+
+    @property
+    def traces(self) -> int:
+        """New programs the recorded calls built (0 on warm calls)."""
+        return sum(r["traces"] for r in self.records)
+
+    @property
+    def collective_rounds(self) -> int:
+        """Serial butterfly rounds of the recorded collectives."""
+        return sum(r["rounds"] for r in self.records)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Plan-priced collective payload bytes of the recorded reductions."""
+        return sum(r["wire_bytes"] for r in self.records)
+
+    @property
+    def overlapped(self) -> int:
+        """Reductions issued during the previous panel's trailing sweep."""
+        return sum(r["overlapped"] for r in self.records)
+
+    def as_dict(self) -> dict:
+        return {
+            "tall_sweeps": self.tall_sweeps,
+            "read_bytes": self.read_bytes,
+            "write_bytes": self.write_bytes,
+            "dispatches": self.dispatches,
+            "traces": self.traces,
+            "collective_rounds": self.collective_rounds,
+            "wire_bytes": self.wire_bytes,
+            "overlapped": self.overlapped,
+            "ops": [r["op"] for r in self.records],
+        }
 
 
 _ACTIVE: list[KernelTraffic] = []

@@ -192,6 +192,26 @@ class QRConfig:
             return self.local_r
         return "chol" if self.panel_width is not None else "jnp"
 
+    def canonical(self) -> "QRConfig":
+        """The program-relevant projection of this config, the key of the
+        cached programs (:mod:`repro_torch.replay`): knobs that do not change
+        the program (``pipeline`` mode, ``recover`` policy) are normalized
+        away and ``local_r="auto"`` is resolved.  Two configs with equal
+        ``canonical()`` share one cached program."""
+        return dataclasses.replace(
+            self,
+            local_r=self.resolved_local_r(),
+            pipeline=Pipeline.AUTO,
+            recover=Recover.REPLICA,
+            # block_rows only shapes the kernels' tiling
+            block_rows=self.block_rows if self.use_pallas else None,
+            # AUTO and ON run the same fused program (ON only tightens the
+            # host-side validation); OFF is the split schedule
+            fuse=Fuse.OFF if self.fuse is Fuse.OFF else Fuse.AUTO,
+            # parity only shapes the program under the coded scheme
+            parity=self.parity if self.redundancy is Redundancy.CODED else 2,
+        )
+
     def factorizer(self):
         """The :class:`~repro_torch.qr.panel.PanelFactorizer` this config implies."""
         from .panel import PanelFactorizer

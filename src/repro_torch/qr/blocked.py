@@ -32,11 +32,14 @@ Two drivers, equal bit for bit on fault-free plans:
   * the fixed-shape pipeline (:func:`_pipeline_body`) keeps the working
     matrix at the padded width ``n_pad = K·b`` in a shifted layout (the live
     panel is always columns ``[0, b)``), primed by ``pad_cross`` when
-    ``n < n_pad``.  Every panel has the same shapes, so a later slice can
-    replay it as one CUDA graph.  The trailing update writes A_new into the
-    leading columns of a second buffer whose last ``b`` columns are zero,
-    so the shift left costs no copy.  Fault-free runs take it under
-    ``pipeline="auto"``; the 4-D batched route always does.
+    ``n < n_pad``.  Every panel has the same shapes, so the whole
+    factorization is one cached program (:mod:`repro_torch.replay`): one
+    CUDA graph per (plan, widths, canonical config, shape, dtype, device),
+    captured at the first call and replayed on every later one, which
+    counts one ``blocked_qr_pipeline`` dispatch.  The trailing update writes
+    A_new into the leading columns of a second buffer whose last ``b``
+    columns are zero, so the shift left costs no copy.  Fault-free runs
+    take it under ``pipeline="auto"``; the 4-D batched route always does.
 
 With ``redundancy="coded"`` every panel reduction is a checksum-coded one
 over the P data ranks plus ``parity`` checksum ranks (a per-panel
@@ -47,7 +50,8 @@ Coded runs always take the eager driver; the sweeps stay at P blocks and
 only the reductions run over the ``P + parity`` world.
 
 The reference's ``lax.scan`` becomes a Python loop over the same fixed
-shapes; ``ShardMapComm`` waits for a later slice.
+shapes, captured whole; the eager driver and every faulted or coded call
+stay eager, as in the reference.  ``ShardMapComm`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -58,19 +62,24 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch import replay
 from repro_torch.collective._tree import tree_map
 from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
 from repro_torch.collective.comm import Comm, SimComm
 from repro_torch.collective.engine import ft_allreduce, recover_payload
 from repro_torch.collective.faults import FaultSpec, within_tolerance
 from repro_torch.collective.plan import Plan, make_plan
+from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import traffic as _traffic
 
 from .api import Fuse, Pipeline, QRConfig, Recover, Redundancy
 from .panel import FUSED_PANEL_COMBINER, PanelFactorizer, chol_r
 
-__all__ = ["BlockedQRResult", "PanelFaultSchedule", "PanelReport", "panel_widths"]
+__all__ = ["PIPELINE_NAME", "BlockedQRResult", "PanelFaultSchedule", "PanelReport",
+           "panel_widths"]
+
+PIPELINE_NAME = "blocked_qr_pipeline"    # trace/dispatch counter key
 
 
 def panel_widths(n: int, panel_width: int) -> tuple[int, ...]:
@@ -532,15 +541,16 @@ def _pipeline_body(a, comm: Comm, plan: Plan, widths: tuple[int, ...], pf: Panel
 # Accounting: the reference's records for the same call
 # ---------------------------------------------------------------------------
 
-def _note_reductions(reports, widths, c_widths, reorth_counts, reorth_plan: Plan,
-                     wire_scale: int = 1) -> None:
+def _note_reductions(name: str, reports, widths, c_widths, reorth_counts,
+                     reorth_plan: Plan, wire_scale: int = 1) -> None:
     """One ``panel_reduce`` record per butterfly (a fused panel is one
     record carrying the stacked payload, a split panel two) plus a
     ``reorth_reduce`` record for the polish passes: serial rounds,
     plan-priced wire bytes and the overlap flag.  ``c_widths`` is the cross
     width each panel reduces (padded in the pipeline, live in the eager
     driver), ``reorth_counts`` the polish passes each panel ran and
-    ``wire_scale`` the batch factor."""
+    ``wire_scale`` the batch factor.  The rounds and overlaps also go to
+    the entry point ``name``'s dispatch records."""
     for rep, b, cw, n_reorth in zip(reports, widths, c_widths, reorth_counts):
         overlapped = 1 if rep.fused and rep.panel > 0 else 0
         if rep.fused or rep.plan_w is None:
@@ -551,18 +561,24 @@ def _note_reductions(reports, widths, c_widths, reorth_counts, reorth_plan: Plan
         else:
             recs = [(rep.plan_r, [(b, b, 4, False)], 0), (rep.plan_w, [(b, cw, 4, False)], 0)]
         for plan, leaves, ov in recs:
-            _traffic.note("panel_reduce", dispatches=0, rounds=plan.round_count(),
+            rounds = plan.round_count()
+            _traffic.note("panel_reduce", dispatches=0, rounds=rounds,
                           wire_bytes=wire_scale * plan.bytes_on_wire_stacked(leaves),
                           overlapped=ov)
+            _dispatch.note_rounds(name, rounds)
+            if ov:
+                _dispatch.note_overlap(name, ov)
         if n_reorth:
+            rounds = n_reorth * reorth_plan.round_count()
             _traffic.note(
-                "reorth_reduce", dispatches=0, rounds=n_reorth * reorth_plan.round_count(),
+                "reorth_reduce", dispatches=0, rounds=rounds,
                 wire_bytes=wire_scale * n_reorth
                 * reorth_plan.bytes_on_wire_stacked([(b, b, 4, True)]),
             )
+            _dispatch.note_rounds(name, rounds)
 
 
-def _note_eager_reductions(reports, widths, n: int, pf: PanelFactorizer) -> None:
+def _note_eager_reductions(name: str, reports, widths, n: int, pf: PanelFactorizer) -> None:
     """Collective records of one eager factorization: cross leaves at their
     live widths, no polish on panels a no-recovery fault left unclean."""
     c_widths, c0 = [], 0
@@ -574,15 +590,18 @@ def _note_eager_reductions(reports, widths, n: int, pf: PanelFactorizer) -> None
         for rep in reports
     )
     plan0 = reports[0].plan_r
-    _note_reductions(reports, widths, tuple(c_widths), reorth_counts,
+    _note_reductions(name, reports, widths, tuple(c_widths), reorth_counts,
                      make_plan("redundant", getattr(plan0, "n_data", plan0.n_ranks)))
 
 
-def _note_pipeline(shape, dtype, widths, reports, reorth: int) -> None:
+def _note_pipeline(shape, dtype, widths, traced: int, reports, reorth: int) -> None:
     """Per-call records of the fixed-shape pipeline, equal to the
-    reference's: the prime and K − 1 trailing sweeps at the padded width
-    (only the trailing path; a ``cqr2`` local QR's narrow sweeps are not
-    recorded), then the collective records."""
+    reference's: one ``PIPELINE_NAME`` dispatch; the prime and K − 1
+    trailing sweeps at the padded width (only the trailing path; a ``cqr2``
+    local QR's narrow sweeps are not recorded), the first carrying the
+    call's one dispatch and its ``traced`` new programs; then the collective
+    records."""
+    _dispatch.note_dispatch(PIPELINE_NAME)
     lead = math.prod(shape[:-2])
     m, n = shape[-2], shape[-1]
     b, k_panels = widths[0], len(widths)
@@ -595,10 +614,11 @@ def _note_pipeline(shape, dtype, widths, reports, reorth: int) -> None:
     nt = n_pad - b
     recs += [("trailing_update", lead * (m * nt * it + m * b * it + b * nt * it),
               lead * (m * nt * it + b * nt * 4))] * (k_panels - 1)
-    for op, read, write in recs:
-        _traffic.note(op, sweeps=1, read_bytes=read, write_bytes=write)
+    for i, (op, read, write) in enumerate(recs):
+        _traffic.note(op, sweeps=1, read_bytes=read, write_bytes=write,
+                      dispatches=int(i == 0), traces=traced if i == 0 else 0)
     c_widths = tuple(n_pad - b if k < k_panels - 1 else 0 for k in range(k_panels))
-    _note_reductions(reports, widths, c_widths, (reorth,) * k_panels,
+    _note_reductions(PIPELINE_NAME, reports, widths, c_widths, (reorth,) * k_panels,
                      make_plan("redundant", reports[0].plan_r.n_ranks),
                      wire_scale=math.prod(shape[:-3]))
 
@@ -622,15 +642,37 @@ def _setup(m_local: int, n: int, p: int, config: QRConfig, faults: PanelFaultSch
     return widths, reports, config.factorizer()
 
 
-def _run_pipeline(a, comm: Comm, widths, reports, pf: PanelFactorizer, config: QRConfig,
-                  shape):
-    with _traffic.suppress():
-        out = _pipeline_body(
-            a, comm, make_plan(config.variant, comm.n_ranks), widths, pf,
-            local_r=config.resolved_local_r(), compute_q=config.compute_q,
-            use_pallas=config.use_pallas, fused=config.fuse is not Fuse.OFF,
-        )
-    _note_pipeline(shape, a.dtype, widths, reports, config.reorth)
+def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
+                  batched: bool = False):
+    """The pipeline as one cached program (one CUDA graph on the card) per
+    (P, widths, canonical config, route) and input shape, dtype and device.
+    The wrappers' notes are suppressed inside it, where the reference's
+    scan traces each kernel once; :func:`_note_pipeline` records the exact
+    per-call totals.  ``batched``: ``a`` is (B, P, m_local, n) and the rank
+    axis moves to the front inside the program (one copy of the stack, so
+    every sweep covers all B·P blocks in one launch)."""
+    p = a.shape[-3]
+    comm = SimComm(p, a.device)
+    plan = make_plan(config.variant, p)
+    fused = config.fuse is not Fuse.OFF
+    canon = config.canonical()
+
+    def body(a):
+        x = a.transpose(0, 1).contiguous() if batched else a
+        r, valid, q = _pipeline_body(x, comm, plan, widths, pf, local_r=canon.local_r,
+                                     compute_q=canon.compute_q, use_pallas=canon.use_pallas,
+                                     fused=fused)
+        if not batched:
+            return r, valid, q
+        bsz = a.shape[0]
+        return (r.transpose(0, 1).contiguous(), valid.expand(bsz, p).clone(),
+                None if q is None else q.transpose(0, 1).contiguous())
+
+    t0 = _dispatch.trace_count(PIPELINE_NAME)
+    with _traffic.suppress(), _dispatch.suppress():
+        out = replay.run(PIPELINE_NAME, (p, widths, canon, batched), body, (a,))
+    _note_pipeline(a.shape, a.dtype, widths, _dispatch.trace_count(PIPELINE_NAME) - t0, reports,
+                   config.reorth)
     return out
 
 
@@ -646,26 +688,23 @@ def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
     coded = config.redundancy is Redundancy.CODED
     detected = None
     if not coded and _resolve_pipeline(config.pipeline, reports):
-        r, valid, q = _run_pipeline(a_blocks, comm, widths, reports, pf, config,
-                                    a_blocks.shape)
+        r, valid, q = _run_pipeline(a_blocks, widths, reports, pf, config)
     else:
         r, valid, q, detected = _blocked_body(
             a_blocks, comm, reports, widths, pf, local_r=config.resolved_local_r(),
             compute_q=config.compute_q, use_pallas=config.use_pallas,
             world=SimComm(p + config.parity, a_blocks.device) if coded else None,
         )
-        _note_eager_reductions(reports, widths, n, pf)
+        _note_eager_reductions("blocked_qr_sim", reports, widths, n, pf)
     return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,
                            panel_width=config.panel_width, detected=detected)
 
 
 def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResult:
     """B independent fault-free factorizations of a (B, P, m_local, n) stack
-    through the fixed-shape pipeline.  The rank axis is moved to the front
-    (one copy of the stack), so every kernel sweep covers all B·P blocks in
-    one launch.  Returns r (B, P, n, n), valid (B, P) and q (B, P, m_local,
-    n)."""
-    bsz, p, m_local, n = a_batch.shape
+    through the fixed-shape pipeline, one program for the stack.  Returns r
+    (B, P, n, n), valid (B, P) and q (B, P, m_local, n)."""
+    _, p, m_local, n = a_batch.shape
     widths, reports, pf = _setup(m_local, n, p, config, None)
     if not _plans_fault_free(reports):
         raise ValueError(
@@ -674,12 +713,6 @@ def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResu
             "pipeline has no machinery to track); factor the matrices one "
             "at a time through the 3-D entry instead"
         )
-    ranks_first = a_batch.transpose(0, 1).contiguous()
-    r, valid, q = _run_pipeline(ranks_first, SimComm(p, a_batch.device), widths, reports,
-                                pf, config, a_batch.shape)
-    if q is not None:
-        q = q.transpose(0, 1).contiguous()
-    return BlockedQRResult(
-        r=r.transpose(0, 1).contiguous(), valid=valid.expand(bsz, p).clone(), q=q,
-        reports=reports, panel_width=config.panel_width,
-    )
+    r, valid, q = _run_pipeline(a_batch, widths, reports, pf, config, batched=True)
+    return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,
+                           panel_width=config.panel_width)

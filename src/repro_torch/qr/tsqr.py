@@ -20,6 +20,12 @@ reduction (:mod:`repro_torch.collective.coded`): ``parity`` checksum ranks
 join the P data ranks, and up to ``parity`` dead, straggling or corrupted
 contributions are reconstructed from parity inside the collective, with
 declared corruptions verified (``detected``).
+
+The batched TSQR is one cached program per (P, canonical config) and input
+shape (:mod:`repro_torch.replay`): a CUDA graph on the card, counted as the
+``tsqr_batched`` trace and dispatch.  The coded TSQR counts its program per
+(canonical config, coded plan) under ``tsqr_coded``, as the reference's
+jitted one does, and runs eagerly, like every coded and faulted call.
 """
 from __future__ import annotations
 
@@ -27,10 +33,12 @@ import dataclasses
 
 import torch
 
+from repro_torch import replay
 from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
 from repro_torch.collective.comm import SimComm
 from repro_torch.collective.faults import FaultSpec
 from repro_torch.collective.plan import Plan, make_plan
+from repro_torch.kernels import dispatch as _dispatch
 
 from .api import QRConfig, Redundancy, _as_tensor
 
@@ -85,11 +93,19 @@ def _factorize_sim_coded(a_blocks: torch.Tensor, config: QRConfig, fault_spec,
     world = SimComm(plan.n_ranks, a_blocks.device)
     if observed is not None:
         observed = _as_tensor(observed, a_blocks.device)
-    val, fv, det = execute_coded(a_blocks, world, plan, pf.combiner(), observed=observed)
-    r, valid, detected = val[:p], fv[:p], det[:p]
-    q = None
-    if config.compute_q:
-        q, r = pf.form_q(a_blocks, r, SimComm(p, a_blocks.device))
+
+    def body(a, observed):
+        val, fv, det = execute_coded(a, world, plan, pf.combiner(), observed=observed)
+        r, valid, detected = val[:p], fv[:p], det[:p]
+        q = None
+        if config.compute_q:
+            q, r = pf.form_q(a, r, SimComm(p, a.device))
+        return r, valid, q, detected
+
+    _dispatch.note_dispatch("tsqr_coded")
+    with replay.eager():
+        r, valid, q, detected = replay.run("tsqr_coded", (config.canonical(), plan), body,
+                                           (a_blocks, observed))
     return TSQRResult(r=r, valid=valid, q=q, plan=plan, detected=detected)
 
 
@@ -122,24 +138,28 @@ def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
 
 
 def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> TSQRResult:
-    """B independent fault-free TSQRs of a (B, P, m_local, n) stack.
+    """B independent fault-free TSQRs of a (B, P, m_local, n) stack in one
+    cached program.
 
-    The rank axis is moved to the front (one copy of the stack), so the
-    engine sees (P, B, m_local, n) payloads and every kernel sweep covers
-    all B·P blocks in one launch.
+    The rank axis is moved to the front inside it (one copy of the stack),
+    so the engine sees (P, B, m_local, n) payloads and every kernel sweep
+    covers all B·P blocks in one launch.
     """
     b, p = a_batch.shape[:2]
     plan = make_plan(config.variant, p)
     _check_compute_q(config, plan)
-    ranks_first = a_batch.transpose(0, 1).contiguous()
     comm = SimComm(p, a_batch.device)
     pf = config.factorizer()
-    r, valid = pf.reduce_r(ranks_first, comm, plan)
-    q = None
-    if config.compute_q:
-        q, r = pf.form_q(ranks_first, r, comm)
-        q = q.transpose(0, 1).contiguous()
-    return TSQRResult(
-        r=r.transpose(0, 1).contiguous(), valid=valid.expand(b, p).clone(),
-        q=q, plan=plan,
-    )
+
+    def body(a):
+        ranks_first = a.transpose(0, 1).contiguous()
+        r, valid = pf.reduce_r(ranks_first, comm, plan)
+        q = None
+        if config.compute_q:
+            q, r = pf.form_q(ranks_first, r, comm)
+            q = q.transpose(0, 1).contiguous()
+        return r.transpose(0, 1).contiguous(), valid.expand(b, p).clone(), q
+
+    _dispatch.note_dispatch("tsqr_batched")
+    r, valid, q = replay.run("tsqr_batched", (p, config.canonical()), body, (a_batch,))
+    return TSQRResult(r=r, valid=valid, q=q, plan=plan)
