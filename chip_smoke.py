@@ -26,6 +26,10 @@ read just after:
 * **Coded blocked QR** (``parity=2``, ``use_pallas=True``) at 8 × 2^17 ×
   512: the eager driver's ``panel_cross``, ``trailing_update`` and polish
   ``gram``.
+* **QR serving** (``repro_torch.serve.QRServer``): shape-bucketed
+  continuous batching, each drain one replay of the batched blocked
+  pipeline (``panel_cross`` or ``pad_cross``, ``trailing_update``, ``gram``)
+  and each request of a faulted drain re-served through the eager driver.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
 one kernel launch for every rank.
@@ -58,18 +62,35 @@ Phases (each raises on failure; the script then exits non-zero):
    and 1 prime + K − 1 trailing sweeps per factorization;
 6. hold ``combine_gram`` against its plain version (f32 and bf16), against
    a float64 product, for exact symmetry and for the same bits on a rerun;
-   then drive the cached programs (``repro_torch.replay``): the blocked
+7. drive the cached programs (``repro_torch.replay``): the blocked
    pipeline at general_full and general_ragged, the batched TSQR at 4 × 8 ×
    2^17 × 32, ``ft_allreduce_jit`` and ``coded_allreduce_jit``, each cold
    (one CUDA-graph capture), warm (one replay, no capture) and eagerly
    issued; check the capture and dispatch counts, the replay's kernel
    launches, replay ≡ eager bit for bit, and time replay against eager;
-7. drive coded TSQR and the coded blocked QR: fault-free R equal to the
-   butterfly's bit for bit, the wire observed through ``InstrumentedComm``
-   equal to the plan, validity and ``detected`` as the plans and the
-   reference give them, decoded R within ``reconstruction_tol``, the launch
-   counts; then the stock collective and blocked fault scenarios on the card;
-8. profile one call of each main path, time each kernel (CUDA events,
+   then drive coded TSQR and the coded blocked QR: fault-free R equal to
+   the butterfly's bit for bit, the wire observed through
+   ``InstrumentedComm`` equal to the plan, validity and ``detected`` as the
+   plans and the reference give them, decoded R within
+   ``reconstruction_tol``, the launch counts; then the stock collective
+   and blocked fault scenarios on the card;
+8. serve two request streams through ``QRServer``: the reference
+   launcher's (P = 4, buckets 256 × 32 and 512 × 64, 24 requests) and one
+   at the sizes users would call real (P = 8, buckets 2^16 × 64, 2^17 ×
+   128 and 2^18 × 256, 48 requests, planned on fixed H100 constants,
+   printed beside the copy bandwidth and f32 product rate measured in the
+   run), each with a death every third drain; check zero new traces,
+   evictions and recaptures over the warm stream, one pipeline dispatch a
+   drain, the kernel launches, every R against numpy's and every
+   re-served R against a fault-free eager re-run bit for bit; then for
+   each bucket's first drain, the replay's R against the eagerly issued
+   program's (bit for bit) and the plain route's, every kernel call of
+   the drain on its own operands against its plain version and float64,
+   and where nothing reads the prime's S, the graph's prime buffers
+   poisoned before a replay and S checked after it; print the planner's
+   decisions, throughput, latencies, drain times and the device's busy
+   share;
+9. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound (``gram``
    also at the blocked QR's polish shape 8 × 2^17 × 128 and at n = 512),
@@ -83,6 +104,7 @@ full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -145,6 +167,11 @@ KERNEL_PATH = {"gram": "factorize", "fused_apply_gram": "factorize",
 KERNEL_SHAPE = {"gram": HEADLINE, "fused_apply_gram": HEADLINE, "apply_right": HEADLINE,
                 "trailing_update": "general_full", "panel_cross": "general_full",
                 "pad_cross": "general_ragged", "combine_gram": "8x512"}
+# Empty spin kernels that profile() launches in each window before the
+# call: once a process has profiled for a while, the profiler drops the
+# first few device records of each window (eager launches and graph
+# replays alike), so these take the loss.
+PROFILE_SPIN = 64
 # The port's kernel functions as the profiler names them, labelled by the
 # wrapper that launches them (panel_cross's sweep also runs inside
 # trailing_update, for its lookahead).
@@ -176,6 +203,27 @@ REPLAY_BLOCKED = {"general_full": BLOCKED_SHAPES["general_full"],
                   "general_full / 32": (P, 1 << 12, 512)}
 CODED_PARITY = 3
 BLOCKED_PARITY = 2
+# The serving streams: the reference launcher's (src/repro/launch/serve.py)
+# and one at the data sizes a user would serve from an H100, padded payload
+# 2^28 bytes a drain.  The card stream is planned on fixed constants, the
+# copy bandwidth and f32 product rate that machine_constants() read on an
+# H100 80GB HBM3 at 700 W, so every run drives the same drains: at the rates
+# a run measures, the 2^18 x 256 bucket's width-32 and width-64 scores lie
+# within 1% and the plan would flip between runs.  Each request of either
+# stream is held to numpy's R by the serving bench's measure
+# (src/repro/bench/cases/serving.py) and limit; each bucket's first drain is
+# held to the plain route's R at about ten times the f32 gap that drains
+# show (a TF32 sweep would pass SERVING_R_TOL).
+CARD_MODEL = dict(mem_bw_bytes_per_s=2.9712e12, flops_per_s=5.1820e13)
+SERVING_STREAMS = {
+    "reference": dict(p=4, buckets=((256, 32), (512, 64)), requests=24,
+                      model=dict(max_batch_cap=6)),
+    "card": dict(p=P, buckets=((1 << 16, 64), (1 << 17, 128), (1 << 18, 256)), requests=48,
+                 model=CARD_MODEL),
+}
+SERVING_FAULT_PERIOD = 3
+SERVING_R_TOL = 5e-4
+SERVING_PLAIN_TOL = 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -217,6 +265,7 @@ def main() -> int:
     smoke.coded_tsqr_path()
     smoke.coded_blocked_path()
     smoke.scenarios()
+    smoke.serving_path()
     smoke.timings()
     smoke.blocked_timings()
     smoke.combine_gram_timing()
@@ -252,6 +301,7 @@ class Smoke:
         self.blocked_full = None      # general_full's input and float64 R
         self.replay_ms: dict[str, tuple[float, float]] = {}  # label -> (replay, eager)
         self.ptxas: dict[str, str] = {}  # kernel -> ptxas -v of its main-path instantiation
+        self.card_name = ""
 
     # -- helpers --------------------------------------------------------------
 
@@ -320,6 +370,7 @@ class Smoke:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()
         log(f"[card] {out[0]}")
+        self.card_name = out[0]
         return out[0]
 
     # -- phase 3: kernels against their plain versions ------------------------
@@ -825,7 +876,7 @@ class Smoke:
         self.times[("combine_gram", "8x512")] = row
         log(f"[time] combine_gram 8x512 {json.dumps(row)}")
 
-    # -- phase 6b: the cached programs (CUDA-graph replay) --------------------
+    # -- phase 8: the cached programs (CUDA-graph replay) ---------------------
 
     def replay_path(self) -> None:
         """The cached programs of ``repro_torch.replay``: the blocked
@@ -870,7 +921,9 @@ class Smoke:
             with replay.eager():
                 eager = fn()
             torch.cuda.synchronize()
-            check(t_cold.traces == {name: 1}, f"{label}: cold traces {dict(t_cold.traces)}")
+            check(t_cold.traces[name] == 1 and all(
+                k == name or k.startswith("kernel:") for k in t_cold.traces),
+                f"{label}: cold traces {dict(t_cold.traces)}")
             check(not t_warm.traces, f"{label}: a warm repeat traced {dict(t_warm.traces)}")
             check(t_cold.dispatches[name] == 1 and t_warm.dispatches == {name: 1},
                   f"{label}: dispatches cold {dict(t_cold.dispatches)} warm "
@@ -939,7 +992,8 @@ class Smoke:
             log(f"[replay] {label}: replay == coded_allreduce bit for bit")
         self.launches["replay"] = counts.as_dict()
         log(f"[replay] cached programs hold {replay.cache_bytes()} bytes; peak allocated "
-            f"{torch.cuda.max_memory_allocated()} bytes")
+            f"{torch.cuda.max_memory_allocated()} bytes; cache {replay.stats()} (evictions past "
+            f"an entry point's count bound, graphs dropped past the memory bound, recaptures)")
 
     def replay_times(self, label: str, fn) -> None:
         """Host-clock medians of the replay and of the eager-issued program."""
@@ -953,7 +1007,7 @@ class Smoke:
         log(f"[e2e] {label}: replay median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); eager "
             f"median {e_med:.3f} ms (min {e_lo:.3f}, max {e_hi:.3f}), 5 runs each")
 
-    # -- phase 7: the coded scheme -------------------------------------------
+    # -- phase 8b: the coded scheme ------------------------------------------
 
     def _ortho(self, q) -> float:
         torch = self.torch
@@ -1194,6 +1248,377 @@ class Smoke:
             log(f"[scenario] {sc.name} ({sc.kind}): " + json.dumps(
                 {k: m.value for k, m in metrics.items()}))
 
+    # -- phase 7: QR serving ----------------------------------------------------
+
+    def machine_constants(self) -> tuple[float, float]:
+        """The card's copy bandwidth (bytes read and written a second, over a
+        1 GiB device-to-device copy) and f32 product rate (an 8192³ product,
+        TF32 off), each the median of CUDA-event times."""
+        torch = self.torch
+        src = torch.empty(1 << 28, device=DEVICE)
+        dst = torch.empty_like(src)
+        copy_ms = self.time_ms(lambda: dst.copy_(src))
+        bandwidth = 2 * src.numel() * 4 / (copy_ms * 1e-3)
+        del src, dst
+        n = 8192
+        a, b = self.randn((n, n), 6000), self.randn((n, n), 6001)
+        mm_ms = self.time_ms(lambda: a @ b, repeats=5, inner=3)
+        flops = 2 * n ** 3 / (mm_ms * 1e-3)
+        del a, b
+        return bandwidth, flops
+
+    def card_stream(self, buckets, n_requests: int, seed: int) -> list:
+        """The reference launcher's request shapes (the requests cycle the
+        buckets, each (m, n) drawn with its jitter from ``seed``), each
+        matrix drawn on the card from its own seed and copied to the host."""
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        mats = []
+        for i in range(n_requests):
+            spec = buckets[i % len(buckets)]
+            n = int(rng.integers(max(2, spec.n_pad // 2), spec.n_pad + 1))
+            m = int(rng.integers(n, spec.m_pad - (spec.n_pad - n) + 1))
+            mats.append(self.randn((m, n), 7000 + i).cpu().numpy())
+        return mats
+
+    @contextlib.contextmanager
+    def tapped_primes(self):
+        """For every prime (``panel_cross`` or ``pad_cross``) launched while
+        a graph is captured in the block: hold its S, so that nothing later
+        in the graph reuses S's memory, and note the address of its
+        partials.  Yields a list of (op, part address, part shape, S)."""
+        from repro_torch.kernels import _launch, ops
+
+        torch = self.torch
+        taps, parts = [], []
+        launch = _launch.launch
+        kernels = {"panel_cross": ops._panel_cross_kernel, "pad_cross": ops._pad_cross_kernel}
+
+        def tapped(name, device, *args):
+            if name in kernels and torch.cuda.is_current_stream_capturing():
+                if name == "panel_cross":
+                    _, part, _, _, batch, _, n, split, _, _, _, splits = args
+                else:
+                    _, _, part, _, _, batch, _, _, split, n, _, _, _, splits = args
+                parts.append((part, (batch, splits, split, n)))
+            return launch(name, device, *args)
+
+        def holding(name):
+            def call(*args, **kw):
+                out = kernels[name](*args, **kw)
+                if torch.cuda.is_current_stream_capturing():
+                    taps.append((name, *parts.pop(), out if name == "panel_cross" else out[1]))
+                return out
+            return call
+
+        _launch.launch = tapped
+        ops._panel_cross_kernel, ops._pad_cross_kernel = holding("panel_cross"), holding(
+            "pad_cross")
+        try:
+            yield taps
+        finally:
+            _launch.launch = launch
+            ops._panel_cross_kernel, ops._pad_cross_kernel = kernels.values()
+
+    def at_address(self, address: int, shape: tuple):
+        """A float32 tensor over device memory at ``address`` (a graph's
+        buffer, which its pool keeps while the graph lives)."""
+        class View:
+            __cuda_array_interface__ = {"shape": shape, "typestr": "<f4", "data": (address, False),
+                                        "version": 3, "strides": None}
+        return self.torch.as_tensor(View(), device=DEVICE)
+
+    @contextlib.contextmanager
+    def held_kernels(self):
+        """Hold every call of the blocked QR's kernels (``panel_cross``,
+        ``pad_cross``, ``trailing_update``, and ``gram`` for Q's polish) in
+        the block on its own operands as it is made: against its plain
+        version and a float64 product.  Yields a map (kernel, operand
+        shapes, statics) -> [calls, max error against the plain version,
+        max error against float64]; the kernel's result is returned as
+        made, so the run is the one it checks."""
+        from repro_torch.kernels import ops
+        from repro_torch.qr import panel
+
+        torch, ref = self.torch, self.ref
+        found: dict[tuple, list] = {}
+
+        def note(name, operands, statics, plain_err, f64_err):
+            key = (name, tuple(tuple(t.shape) for t in operands), statics)
+            row = found.setdefault(key, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1], row[2] = max(row[1], plain_err), max(row[2], f64_err)
+
+        def cross64(x, split):
+            x64 = x.double()
+            return x64[..., :split].mT @ x64
+
+        def gram(kernel):
+            def call(a):
+                g = kernel(a)
+                note("gram", (a,), (), self.rel_err(g, ref.gram(a)),
+                     self.rel_err(g.double(), cross64(a, a.shape[-1])))
+                return g
+            return call
+
+        def panel_cross(kernel):
+            def call(a, *, split):
+                s = kernel(a, split=split)
+                note("panel_cross", (a,), (split,),
+                     self.rel_err(s, ref.panel_cross(a, split=split)),
+                     self.rel_err(s.double(), cross64(a, split)))
+                return s
+            return call
+
+        def pad_cross(kernel):
+            def call(a, *, split, out_width):
+                a_pad, s = kernel(a, split=split, out_width=out_width)
+                want = ref.pad_cross(a, split=split, out_width=out_width)
+                note("pad_cross", (a,), (split, out_width),
+                     max(self.rel_err(a_pad, want[0]), self.rel_err(s, want[1])),
+                     self.rel_err(s[..., :a.shape[-1]].double(), cross64(a, split)))
+                return a_pad, s
+            return call
+
+        def trailing_update(kernel):
+            def call(a, q, w, *, next_width=0, out=None):
+                got = kernel(a, q, w, next_width=next_width, out=out)
+                want = ref.trailing_update(a, q, w, next_width=next_width)
+                a_new, s = (got if next_width else (got, None))
+                exact = a.double() - q.double() @ w.double()
+                if next_width:
+                    plain = max(self.rel_err(a_new, want[0]), self.rel_err(s, want[1]))
+                    f64 = max(self.rel_err(a_new.double(), exact),
+                              self.rel_err(s.double(), cross64(a_new, next_width)))
+                else:
+                    plain, f64 = self.rel_err(a_new, want), self.rel_err(a_new.double(), exact)
+                note("trailing_update", (a, q, w), (next_width,), plain, f64)
+                return got
+            return call
+
+        patches = [(panel, "gram", gram),
+                   (ops, "_panel_cross_kernel", panel_cross),
+                   (ops, "_pad_cross_kernel", pad_cross),
+                   (ops, "_trailing_kernel", trailing_update)]
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+        for mod, attr, wrap in patches:
+            setattr(mod, attr, wrap(getattr(mod, attr)))
+        try:
+            yield found
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+
+    def serving_path(self) -> None:
+        """``QRServer`` on the card (``use_pallas=True``: each drain one CUDA-
+        graph replay of the batched pipeline on the kernels).  For each
+        stream: ``prewarm()``; the stream with a death every third drain;
+        zero new traces, evictions and recaptures over it; one pipeline
+        dispatch a drain; the prime and trailing launches of every drain and
+        re-serve; each R against numpy's; each re-served R against a
+        fault-free eager re-run bit for bit.  Then, for each bucket, its
+        first drain's batch: the replay's R against the same program
+        issued eagerly (bit for bit) and on the plain route
+        (``use_pallas=False``, ``SERVING_PLAIN_TOL``); every kernel call of
+        the eagerly issued drain on its own operands against its plain
+        version and float64; the drain's host-to-card copy and replay
+        timed, and on the card stream the replay profiled."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch import replay
+        from repro_torch.launch.serve import synthetic_stream
+        from repro_torch.qr import Pipeline, factorize
+        from repro_torch.qr.blocked import PIPELINE_NAME
+        from repro_torch.serve import BucketSpec, CostModel, PeriodicFaultInjector, QRServer
+        from repro_torch.serve.buckets import block_rows, extract_r, pad_request
+
+        d, counts = self.dispatch, self.dispatch.launches
+        phase_t0 = time.perf_counter()
+        bandwidth, flops = self.machine_constants()
+        log(f"[serve] measured on {self.card_name}: copy bandwidth {bandwidth:.4e} B/s, f32 "
+            f"product rate {flops:.4e} FLOP/s (TF32 off); the card stream is planned on "
+            f"{CARD_MODEL['mem_bw_bytes_per_s']:.4e} B/s and {CARD_MODEL['flops_per_s']:.4e} "
+            f"FLOP/s")
+        replay.clear()
+        for label, cfg in SERVING_STREAMS.items():
+            p = cfg["p"]
+            buckets = tuple(BucketSpec(*b) for b in cfg["buckets"])
+            injector = PeriodicFaultInjector.sampled(SERVING_FAULT_PERIOD, variant="redundant",
+                                                     p=p, seed=0)
+            server = QRServer(buckets, p=p, model=CostModel(**cfg["model"]),
+                              fault_injector=injector, device=DEVICE)
+            check(all(c.use_pallas for c in server.configs.values()),
+                  f"serve {label}: a config on the card without use_pallas")
+            for plan in server.planner_decisions():
+                log(f"[serve] {label}: bucket {plan['bucket']}: panel_width="
+                    f"{plan['panel_width']} local_r={plan['local_r']} max_batch="
+                    f"{plan['max_batch']} predicted drain {plan['predicted_drain_s']:.4e} s")
+            t0 = time.perf_counter()
+            with self.tapped_primes() as taps:
+                traces = server.prewarm()
+            log(f"[serve] {label}: prewarm {sum(traces.values())} trace(s) in "
+                f"{time.perf_counter() - t0:.2f} s {traces}")
+            check(len(taps) == len(server.buckets),
+                  f"serve {label}: {len(taps)} primes captured for {len(server.buckets)} buckets")
+            t0 = time.perf_counter()
+            mats = (self.card_stream(buckets, cfg["requests"], 0) if label == "card"
+                    else synthetic_stream(buckets, cfg["requests"], 0))
+            log(f"[serve] {label}: {len(mats)} requests drawn in "
+                f"{time.perf_counter() - t0:.2f} s")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stats0, traced0 = replay.stats(), d.trace_count()
+            counts.reset()
+            t0 = time.perf_counter()
+            responses = server.serve(mats)
+            wall = time.perf_counter() - t0
+            launched = counts.as_dict()
+            self.launches[f"serving {label}"] = launched
+            warm = d.trace_count() - traced0
+            stats = {k: v - stats0[k] for k, v in replay.stats().items()}
+            s = server.stats
+            check(warm == 0, f"serve {label}: the warm stream traced {warm}")
+            check(stats["evictions"] == 0 and stats["recaptures"] == 0,
+                  f"serve {label}: the warm stream's cache {stats}")
+            check(s.dispatches_per_drain == [1] * s.drains,
+                  f"serve {label}: {PIPELINE_NAME} dispatches a drain {s.dispatches_per_drain}")
+            check(len(responses) == len(mats) == s.served, f"serve {label}: served {s.served}")
+            # the prime and K - 1 trailing sweeps of every drain and re-serve
+            drains = {r.drain_index: r.bucket for r in responses}
+            runs = list(drains.values()) + [r.bucket for r in responses
+                                            if r.served_via == "reserved"]
+            want_prime = len(runs)
+            want_trailing = sum(-(-spec.n_pad // server.plans[spec].panel_width) - 1
+                                for spec in runs)
+            check(len(drains) == s.drains and
+                  launched["panel_cross"] + launched["pad_cross"] == want_prime and
+                  launched["trailing_update"] == want_trailing,
+                  f"serve {label}: launches {launched}, want prime {want_prime} trailing "
+                  f"{want_trailing}")
+            t0 = time.perf_counter()
+            err = 0.0
+            for resp, a in zip(responses, mats):
+                r_np = np.linalg.qr(a, mode="r")
+                sign = np.sign(np.diag(r_np))
+                sign[sign == 0] = 1.0
+                r_ref = (r_np.T * sign).T
+                err = max(err, float(np.abs(resp.r - r_ref).max()
+                                     / max(1.0, np.abs(r_ref).max())))
+            check(err <= SERVING_R_TOL, f"serve {label}: max R error {err:.3e}")
+            numpy_s = time.perf_counter() - t0
+            reserved = [r for r in responses if r.served_via == "reserved"]
+            for resp in reserved:
+                a = mats[resp.rid]
+                cfg_off = dataclasses.replace(server.configs[resp.bucket], pipeline=Pipeline.OFF)
+                rerun = factorize(block_rows(pad_request(a, resp.bucket), p), cfg_off,
+                                  device=DEVICE)
+                r_rerun = extract_r(rerun.r[0].cpu().numpy(), a.shape[1])
+                check(np.array_equal(resp.r.view(np.int32), r_rerun.view(np.int32)),
+                      f"serve {label}: re-served request {resp.rid} != its fault-free re-run")
+            lat_ms = np.array([r.latency_s for r in responses]) * 1e3
+            log(f"[serve] {label}: served {s.served} requests in {wall:.3f} s "
+                f"({s.served / wall:.1f} req/s), {s.drains} drains ({s.faulted_drains} "
+                f"faulted, {s.reserved} re-served, {s.filler_slots} filler slots); "
+                f"dispatches/drain {sorted(set(s.dispatches_per_drain))}; latency p50 "
+                f"{np.percentile(lat_ms, 50):.3f} ms p99 {np.percentile(lat_ms, 99):.3f} ms")
+            log(f"[serve] {label}: warm-stream traces {warm}, cache {stats}; launches "
+                f"{launched} (prime {want_prime}, trailing {want_trailing} wanted); max R error "
+                f"{err:.3e} (limit {SERVING_R_TOL}; numpy's QRs {numpy_s:.2f} s); "
+                f"{len(reserved)} re-served R equal to their fault-free eager re-runs bit for bit")
+            log(f"[serve] {label}: cached programs hold {replay.cache_bytes()} bytes; peak "
+                f"allocated over the stream {torch.cuda.max_memory_allocated()} bytes")
+            for spec, tap in zip(server.buckets, taps):
+                self.serving_drain(label, server, spec, [
+                    a for a in mats if server.bucket_of(*a.shape) == spec], tap)
+            del server, responses, mats, taps
+            torch.cuda.empty_cache()
+        log(f"[serve] phase took {time.perf_counter() - phase_t0:.1f} s")
+
+    def serving_drain(self, label: str, server, spec, mats: list, tap: tuple) -> None:
+        """One bucket's first drain batch (its first ``max_batch`` requests
+        of the stream, padded, topped up with fillers), on the card: the
+        warm replay's R equal to the same program issued eagerly bit for
+        bit and within ``SERVING_PLAIN_TOL`` of the plain route's; every
+        kernel call of the eager drain held on its own operands
+        (:meth:`held_kernels`); where nothing reads the prime's S (one
+        panel, no Cholesky local R), so R cannot vouch for it, the graph's
+        prime buffers (``tap``) poisoned before a replay and its S held to
+        the kernel's S of the same operand after it; the host-to-card copy
+        and the replay timed; on the card stream the replay profiled."""
+        torch = self.torch
+        import numpy as np
+
+        from repro_torch import replay
+        from repro_torch.qr import factorize
+        from repro_torch.serve.buckets import block_rows, filler_matrix, pad_request
+
+        counts = self.dispatch.launches
+        p, plan, config = server.p, server.plans[spec], server.configs[spec]
+        padded = [pad_request(a, spec) for a in mats[:plan.max_batch]]
+        padded += [filler_matrix(spec)] * (plan.max_batch - len(padded))
+        batch = np.stack([block_rows(m, p) for m in padded])
+        dev = torch.from_numpy(batch).to(DEVICE)
+        tag = f"{label}: drain {spec.m_pad} x {spec.n_pad} x {plan.max_batch} " \
+              f"(width {plan.panel_width})"
+        traced0 = self.dispatch.trace_count()
+        r_replay = factorize(dev, config, device=DEVICE).r
+        check(self.dispatch.trace_count() == traced0, f"serve {tag}: the warm replay traced")
+        before = counts.as_dict()
+        with self.held_kernels() as held, replay.eager():
+            r_eager = factorize(dev, config, device=DEVICE).r
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts.as_dict().items() if v != before[k]}
+        held_calls = collections.Counter()
+        for (name, _, _), (calls, _, _) in held.items():
+            held_calls[name] += calls
+        check(launched == dict(held_calls), f"serve {tag}: launched {launched}, held {held_calls}")
+        check(self.same_bits(r_eager, r_replay), f"serve {tag}: replay R != eager-issued R")
+        with replay.eager():
+            r_plain = factorize(dev, dataclasses.replace(config, use_pallas=False),
+                                device=DEVICE).r
+        plain_err = self.rel_err(r_replay, r_plain)
+        log(f"[serve] {tag}: replay R == eager-issued R bit for bit; vs the plain route "
+            f"{plain_err:.3e} (limit {SERVING_PLAIN_TOL}); kernel calls {launched}")
+        check(plain_err <= SERVING_PLAIN_TOL,
+              f"serve {tag}: R {plain_err:.3e} from the plain route > {SERVING_PLAIN_TOL}")
+        for (name, shapes, statics), (calls, perr, ferr) in held.items():
+            log(f"[serve] {tag}: {name} {shapes} {statics} x{calls}: vs plain {perr:.2e}, "
+                f"vs float64 {ferr:.2e}")
+            check(perr <= TOL["float32"], f"serve {tag}: {name} {shapes}: {perr:.3e} from "
+                  f"its plain version > {TOL['float32']}")
+            check(ferr <= F64_TOL, f"serve {tag}: {name} {shapes}: {ferr:.3e} from float64 "
+                  f"> {F64_TOL}")
+        del r_eager, r_plain, held
+        if -(-spec.n_pad // plan.panel_width) == 1 and plan.local_r != "chol":
+            op, part_at, part_shape, s = tap
+            part = self.at_address(part_at, part_shape)
+            part.fill_(float("nan"))
+            s.fill_(float("nan"))
+            factorize(dev, config, device=DEVICE)
+            x = dev.transpose(0, 1).contiguous()
+            b = plan.panel_width
+            want = (self.kernels[op](x, split=b) if op == "panel_cross" else
+                    self.kernels[op](x, split=b, out_width=spec.n_pad)[1])
+            torch.cuda.synchronize()
+            check(self.same_bits(s, want),
+                  f"serve {tag}: the graph's {op} node left S != {op} of its operand")
+            log(f"[serve] {tag}: nothing reads the prime's S; the graph's {op} buffers "
+                f"(partials {part_shape}, S {tuple(s.shape)}, held through the capture) "
+                f"poisoned with NaN before a replay: S == {op} of the graph's operand bit for "
+                f"bit after it")
+            del part, x, want
+        times = [self._median_ms(fn) for fn in (
+            lambda: torch.from_numpy(batch).to(DEVICE),
+            lambda: factorize(dev, config, device=DEVICE))]
+        log(f"[serve] {tag} (host clock, median, min, max of 5): "
+            + "; ".join(f"{what} {med:.3f} ms ({lo:.3f}, {hi:.3f})" for what, (med, lo, hi)
+                        in zip(("host-to-card copy", "replay"), times)))
+        if label == "card":
+            self.profile(f"serving drain replay {spec.m_pad} x {spec.n_pad} x {plan.max_batch}",
+                         lambda: factorize(dev, config, device=DEVICE))
+
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over
         the call, the device-time sums by kernel (each port kernel named by
@@ -1203,7 +1628,11 @@ class Smoke:
         do not overlap).  The window opens 20 ms before the call, so no
         launch of the call sits at its opening, and every launch of a port
         kernel in the call must have its record: a missing one would leave
-        the busy share short."""
+        the busy share short.  Later in a process the profiler drops the
+        first few device records of each window, so ``PROFILE_SPIN`` empty
+        spin kernels run first, outside the call's span and sums; at least
+        one of their records must be kept, which shows the drop ended
+        before the call."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1216,6 +1645,9 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             time.sleep(0.02)
+            for _ in range(PROFILE_SPIN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
             fn()
@@ -1229,30 +1661,36 @@ class Smoke:
         # CUPTI's host-side records (a launch blocked on a full command
         # buffer) are no device work
         cuda = torch.autograd.DeviceType.CUDA
-        rows, host = [], []
+        rows, host, spun = [], [], 0
         for e in prof.key_averages():
-            if e.self_device_time_total > 0 and e.device_type == cuda:
+            if "spin_kernel" in e.key:
+                spun += e.count
+            elif e.self_device_time_total > 0 and e.device_type == cuda:
                 rows.append((e.key, e.self_device_time_total, e.count))
             elif e.self_device_time_total > 0 and not e.key.startswith("aten::"):
                 host.append((e.key, e.self_device_time_total, e.count))
         check(bool(rows), f"profile {label}: the profiler recorded no device time")
+        check(spun > 0, f"profile {label}: the profiler dropped all {PROFILE_SPIN} spin records "
+              f"before the call, so it may have dropped the call's first records")
         records = collections.Counter()
         for key, _, count in rows:
             records[self._port_kernel(key)] += count
         want = {("panel_cross sweep" if k == "panel_cross" else k): n for k, n in launched.items()}
         missing = {k: (records[k], n) for k, n in want.items()
                    if records[k] < n or (records[k] != n and k != "panel_cross sweep")}
-        check(not missing, f"profile {label}: kernel records (got, launched) {missing}")
         busy_us = sum(t for _, t, _ in rows)
         log(f"[profile] {label}: wall {wall_us:.0f} us, device span {span_us:.0f} us "
             f"(CUDA events), device busy {busy_us:.0f} us ({100 * busy_us / span_us:.1f}% of "
-            f"the span, {100 * busy_us / wall_us:.1f}% of the wall); every launch of a port "
-            f"kernel has its record ({launched})")
+            f"the span, {100 * busy_us / wall_us:.1f}% of the wall); port kernels launched "
+            f"{launched}")
         for key, t, count in sorted(rows, key=lambda r: -r[1])[:10]:
             log(f"[profile]   {t:10.0f} us  x{count:<4d} {self._port_kernel(key):18s} {key[:80]}")
         if host:
             log("[profile]   not device work, not counted: " + ", ".join(
                 f"{key[:40]} {t:.0f} us x{count}" for key, t, count in host))
+        check(not missing, f"profile {label}: kernel records (got, launched) {missing}")
+        log(f"[profile] {label}: every launch of a port kernel has its record; the profiler "
+            f"kept {spun} of the {PROFILE_SPIN} spin records before the call")
 
     @staticmethod
     def _port_kernel(key: str) -> str:
@@ -1263,7 +1701,7 @@ class Smoke:
                 return name
         return "library"
 
-    # -- phase 8: kernel times ------------------------------------------------
+    # -- phase 9: kernel times ------------------------------------------------
 
     def timings(self) -> None:
         torch = self.torch

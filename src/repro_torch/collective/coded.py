@@ -637,5 +637,5 @@ def coded_allreduce_jit(x, comm: Comm, *, op: Combiner | str = "sum",
                                plan=plan, observed=obs)
 
     _dispatch.note_dispatch("coded_allreduce")
-    return replay.run("coded_allreduce", (comm, plan, combiner, struct, o_struct), body,
-                      tuple(flat + o_flat))
+    return replay.run("coded_allreduce", (comm, plan, combiner), body, tuple(flat + o_flat),
+                      layout=(struct, o_struct))

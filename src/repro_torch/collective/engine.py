@@ -281,5 +281,5 @@ def ft_allreduce_jit(
         return ft_allreduce(unflatten(struct, flat), comm, op=combiner, plan=plan, fast=fast)
 
     _dispatch.note_dispatch("ft_allreduce")
-    return replay.run("ft_allreduce", (comm, plan, combiner, fast, struct), body,
-                      tuple(leaves(x)))
+    return replay.run("ft_allreduce", (comm, plan, combiner, fast), body, tuple(leaves(x)),
+                      layout=struct)

@@ -30,10 +30,17 @@ same names and semantics):
 The reference counts the kernel-op dispatches made inside a jitted body only
 while it traces; the port counts them while it builds the cached program
 (the eager run before the capture) and suppresses them on every later call,
-so cold and warm calls give the reference's counts.  The reference's
-``kernel:<op>`` trace names count nothing here: the kernels are built once
-per process, not compiled per shape, so the ``traces`` field of every
-kernel-op traffic record stays 0.
+so cold and warm calls give the reference's counts.
+
+**Kernel traces.**  The reference jit-compiles each kernel per signature and
+notes a ``kernel:<op>`` trace for each one it traces.  The port's kernels
+are built once a process, but :func:`note_kernel_trace` keeps the same
+count: one trace the first time the process sees a kernel call's signature
+(the shapes, dtypes and statics the reference's jit keys on, as
+:mod:`repro_torch.kernels.ops` spells them), none after.  A signature seen
+while a cached program is built is seen once however often the body runs,
+so a pipeline counts its prime and its trailing sweep once, as the
+reference's scan traces them once.  So the totals equal the reference's.
 
 Usage::
 
@@ -50,12 +57,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+from collections.abc import Hashable
 
 __all__ = [
     "DispatchStats",
     "LaunchCounts",
     "launches",
     "note_dispatch",
+    "note_kernel_trace",
     "note_overlap",
     "note_rounds",
     "note_trace",
@@ -93,8 +102,9 @@ class LaunchCounts:
 launches = LaunchCounts()
 
 # Process-lifetime trace counts by entry point (retrace guards compare
-# deltas; never reset).
+# deltas; never reset), and the kernel signatures traced so far.
 _TRACES: collections.Counter = collections.Counter()
+_KERNEL_SIGNATURES: set = set()
 
 
 @dataclasses.dataclass
@@ -142,6 +152,16 @@ def note_trace(name: str) -> None:
     _TRACES[name] += 1
     for t in _ACTIVE:
         t.traces[name] += 1
+
+
+def note_kernel_trace(op: str, signature: Hashable) -> int:
+    """Record the reference's ``kernel:<op>`` trace for a kernel call whose
+    signature this process has not seen yet; returns the traces noted."""
+    if (op, signature) in _KERNEL_SIGNATURES:
+        return 0
+    _KERNEL_SIGNATURES.add((op, signature))
+    note_trace("kernel:" + op)
+    return 1
 
 
 def _note(field: str, name: str, n: int) -> None:

@@ -8,7 +8,9 @@ fused: round 1's panel apply also accumulates round 2's Gram
 operand 3× and the R-only variant (:func:`cholesky_qr2_r`, what the TSQR
 butterfly carries) exactly 2× with no tall intermediate in device memory.
 Every wrapper notes one dispatch (:mod:`repro_torch.kernels.dispatch`) and
-its traffic (:mod:`repro_torch.kernels.traffic`), as the reference's do.
+its traffic (:mod:`repro_torch.kernels.traffic`), as the reference's do, and
+the reference's ``kernel:<op>`` trace when its call has a new signature
+(:func:`_trace`).
 
 ``use_pallas=True`` keeps the reference's spelling and selects the
 hand-written Hopper kernels (``csrc/``); ``False`` runs the plain PyTorch
@@ -54,23 +56,56 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _note(op: str, **traffic_kw) -> None:
-    """Record one wrapper call: a dispatch and its traffic."""
+# The reference's plain route of these three runs through module-level
+# jits, which trace like the kernels; its plain gram, apply_right,
+# fused_apply_gram and combine_gram are jnp and trace nothing.
+_PLAIN_TRACED = frozenset({"trailing_update", "panel_cross", "pad_cross"})
+
+
+def _trace(op: str, arrays, statics: tuple = (), *, use_pallas: bool,
+           block_rows="auto", lead: tuple | None = None) -> int:
+    """Note the reference's ``kernel:<op>`` trace for this call's signature;
+    returns the traces noted (0 or 1).
+
+    The reference's kernel is a jit vmapped over the leading dims, so on the
+    kernel route the signature is each operand's last two dims and dtype,
+    the statics and the ``block_rows`` the kernel is passed (``"auto"``: a
+    wrapper's per-call resolution; a pipeline passes its config's).  On the
+    plain route the reference's jit sees whole operands; ``lead`` replaces
+    their leading dims inside a program batched over matrices, whose batch
+    axis the reference's vmap hides (the pipeline notes its sweeps so,
+    :func:`repro_torch.qr.blocked._note_sweep_traces`)."""
+    if use_pallas:
+        sig = ("kernel", tuple((tuple(t.shape[-2:]), t.dtype) for t in arrays), statics,
+               block_rows)
+    elif op in _PLAIN_TRACED:
+        sig = ("plain", tuple(((tuple(t.shape[:-2]) if lead is None else lead)
+                               + tuple(t.shape[-2:]), t.dtype) for t in arrays), statics)
+    else:
+        return 0
+    return _dispatch.note_kernel_trace(op, sig)
+
+
+def _note(op: str, traces: int, **traffic_kw) -> None:
+    """Record one wrapper call: a dispatch and its traffic, with the kernel
+    traces the call noted."""
     _dispatch.note_dispatch(op)
-    _traffic.note(op, **traffic_kw)
+    _traffic.note(op, traces=traces, **traffic_kw)
 
 
 # -- kernel entry points (batched, kernel/plain switchable) ------------------
 
 def gram(a, *, use_pallas: bool = False):
+    traced = _trace("gram", (a,), use_pallas=use_pallas)
     out = _gram_kernel(a) if use_pallas else _ref.gram(a)
-    _note("gram", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    _note("gram", traced, sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
 def apply_right(a, w, *, use_pallas: bool = False):
+    traced = _trace("apply_right", (a, w), use_pallas=use_pallas)
     out = _apply_kernel(a, w) if use_pallas else _ref.apply_right(a, w)
-    _note("apply_right", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+    _note("apply_right", traced, sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
           write_bytes=_nbytes(out))
     return out
 
@@ -81,6 +116,7 @@ def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
     Returns ``(q, g)`` — or just ``g`` when ``want_q=False``, in which case
     the applied panel never reaches device memory.
     """
+    traced = _trace("fused_apply_gram", (a, w), (want_q,), use_pallas=use_pallas)
     if use_pallas:
         out = _fused_kernel(a, w, want_q=want_q)
     else:
@@ -88,7 +124,7 @@ def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
         out = (q, g) if want_q else g
     g_out = out[1] if want_q else out
     q_bytes = _nbytes(out[0]) if want_q else 0
-    _note("fused_apply_gram", sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
+    _note("fused_apply_gram", traced, sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
           write_bytes=q_bytes + _nbytes(g_out))
     return out
 
@@ -97,8 +133,9 @@ def combine_gram(r1, r2, *, use_pallas: bool = False):
     """``G = R1ᵀR1 + R2ᵀR2`` in float32 for two (…, n, n) factors: the
     Gram-butterfly's combine.  Recorded as the reference records it: no
     sweep, reading both factors and writing G."""
+    traced = _trace("combine_gram", (r1, r2), use_pallas=use_pallas)
     out = _combine_kernel(r1, r2) if use_pallas else _ref.combine_gram(r1, r2)
-    _note("combine_gram", read_bytes=_nbytes(r1) + _nbytes(r2), write_bytes=_nbytes(out))
+    _note("combine_gram", traced, read_bytes=_nbytes(r1) + _nbytes(r2), write_bytes=_nbytes(out))
     return out
 
 
@@ -106,7 +143,8 @@ def combine_gram(r1, r2, *, use_pallas: bool = False):
 #
 # The fixed-shape blocked-QR pipeline (repro_torch.qr.blocked) calls these
 # and notes its own per-call totals, as the reference's scan-compiled
-# pipeline does; launches are counted by the kernel wrappers either way.
+# pipeline does, its kernel traces included; launches are counted by the
+# kernel wrappers either way.
 
 def _trailing_update_raw(a, q, w, *, next_width: int = 0, use_pallas: bool = False,
                          out=None):
@@ -135,18 +173,20 @@ def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False):
     """Blocked-QR trailing update ``A − Q W`` in **one** trailing-block
     sweep, with the next panel's cross-Gram ``S`` accumulated in the same
     pass when ``next_width > 0``.  Returns ``a_new`` — or ``(a_new, s)``."""
+    traced = _trace("trailing_update", (a, q, w), (next_width,), use_pallas=use_pallas)
     out = _trailing_update_raw(a, q, w, next_width=next_width, use_pallas=use_pallas)
     a_new = out[0] if next_width else out
     s_bytes = _nbytes(out[1]) if next_width else 0
-    _note("trailing_update", sweeps=1, read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
+    _note("trailing_update", traced, sweeps=1, read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
           write_bytes=_nbytes(a_new) + s_bytes)
     return out
 
 
 def panel_cross(a, *, split: int, use_pallas: bool = False):
     """Pipeline prime for blocked QR: ``S = A[:, :split]ᵀ A`` in one sweep."""
+    traced = _trace("panel_cross", (a,), (split,), use_pallas=use_pallas)
     out = _panel_cross_raw(a, split=split, use_pallas=use_pallas)
-    _note("panel_cross", sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
+    _note("panel_cross", traced, sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
@@ -154,8 +194,9 @@ def pad_cross(a, *, split: int, out_width: int, use_pallas: bool = False):
     """Fixed-shape pipeline prime: widen A to the padded trailing width and
     compute ``S = A[:, :split]ᵀ A`` in the same single sweep.  Returns
     ``(a_pad, s)``."""
+    traced = _trace("pad_cross", (a,), (split, out_width), use_pallas=use_pallas)
     out = _pad_cross_raw(a, split=split, out_width=out_width, use_pallas=use_pallas)
-    _note("pad_cross", sweeps=1, read_bytes=_nbytes(a),
+    _note("pad_cross", traced, sweeps=1, read_bytes=_nbytes(a),
           write_bytes=_nbytes(out[0]) + _nbytes(out[1]))
     return out
 

@@ -19,9 +19,9 @@ Usage::
 
 Each record also carries its dispatches and the new programs the call
 built (``traces``, :mod:`repro_torch.kernels.dispatch`): a kernel-op
-wrapper records one dispatch and no trace (the kernels are not compiled per
-shape), the blocked pipeline one dispatch for the whole factorization and a
-trace on the call that built its program.
+wrapper records one dispatch and the ``kernel:<op>`` trace of a signature
+new to the process, the blocked pipeline one dispatch for the whole
+factorization and a trace on the call that built its program.
 """
 from __future__ import annotations
 

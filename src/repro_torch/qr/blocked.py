@@ -642,6 +642,28 @@ def _setup(m_local: int, n: int, p: int, config: QRConfig, faults: PanelFaultSch
     return widths, reports, config.factorizer()
 
 
+def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, p: int) -> None:
+    """The reference's ``kernel:<op>`` traces of the pipeline's sweeps: its
+    scan traces the prime and the trailing sweep once, however many panels
+    run, with the config's ``block_rows``; a batched pipeline's matrix axis
+    is hidden by its vmap, so the plain route sees (P, m, ·) operands."""
+    b, k_panels = widths[0], len(widths)
+    m, n = mn
+    n_pad = b * k_panels
+
+    def like(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    kw = dict(use_pallas=canon.use_pallas, block_rows=canon.block_rows, lead=(p,))
+    if n_pad == n:
+        kops._trace("panel_cross", (like(m, n),), (b,), **kw)
+    else:
+        kops._trace("pad_cross", (like(m, n),), (b, n_pad), **kw)
+    if k_panels > 1:
+        kops._trace("trailing_update", (like(m, n_pad - b), like(m, b), like(b, n_pad - b)),
+                    (b,), **kw)
+
+
 def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
                   batched: bool = False):
     """The pipeline as one cached program (one CUDA graph on the card) per
@@ -668,6 +690,7 @@ def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
         return (r.transpose(0, 1).contiguous(), valid.expand(bsz, p).clone(),
                 None if q is None else q.transpose(0, 1).contiguous())
 
+    _note_sweep_traces(a.shape[-2:], a.dtype, widths, canon, p)
     t0 = _dispatch.trace_count(PIPELINE_NAME)
     with _traffic.suppress(), _dispatch.suppress():
         out = replay.run(PIPELINE_NAME, (p, widths, canon, batched), body, (a,))

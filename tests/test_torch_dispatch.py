@@ -3,12 +3,15 @@ package's jitted entry points, on the CPU.
 
 The same calls go through the reference and the port, and the counts each
 records under ``track_dispatch`` (traces, dispatches, butterfly rounds and
-overlaps by entry point) must be equal: a cold call builds one program
-(one trace), a warm repeat builds none, and every call counts its
-dispatches.  On the CPU a cached program is the body run eagerly; the CUDA
-graphs it becomes on the card are checked by chip_smoke.py's replay phase.
-Each test uses shapes of its own, so that no other test's calls have
-warmed either side's cache.
+overlaps by entry point) must be equal as whole dicts, the reference's
+``kernel:<op>`` traces and the totals included: a cold call builds one
+program (one trace), a warm repeat builds none, a kernel traces once a new
+signature, and every call counts its dispatches.  On the CPU a cached
+program is the body run eagerly; the CUDA graphs it becomes on the card are
+checked by chip_smoke.py's replay phase.
+Each test starts from empty caches on both sides (``_cold_caches``): kernel
+traces are process-lifetime, and another test file run earlier in the same
+process may have warmed one side only.
 """
 import dataclasses
 
@@ -18,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax_reference  # noqa: E402,F401  (before any repro import)
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro import collective as jc  # noqa: E402
 from repro.kernels import dispatch as jdispatch  # noqa: E402
@@ -28,6 +32,7 @@ from repro.qr import factorize as jfactorize  # noqa: E402
 from repro.qr.blocked import PIPELINE_NAME as J_PIPELINE_NAME  # noqa: E402
 
 from repro_torch import collective as tc  # noqa: E402
+from repro_torch import replay  # noqa: E402
 from repro_torch.kernels import dispatch, traffic  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.qr import QRConfig, factorize  # noqa: E402
@@ -36,19 +41,26 @@ from repro_torch.qr.blocked import PIPELINE_NAME  # noqa: E402
 TOL = dict(rtol=5e-4, atol=5e-4)
 
 
+@pytest.fixture(autouse=True)
+def _cold_caches():
+    """Each test starts with both sides' program caches and kernel-trace
+    signatures empty: another test file in the same process may have
+    warmed one side only (a port-only call, or a reference call with
+    ``interpret=True``, which the port has no counterpart of)."""
+    jax.clear_caches()
+    replay.clear()
+    dispatch._KERNEL_SIGNATURES.clear()
+
+
 def _counted(jcall, tcall):
     """Run the reference's call and the port's, each under its own
     ``track_dispatch``.  Returns ``(got, want, port counts, reference
-    counts)``; the reference's per-kernel ``kernel:<op>`` jit traces are
-    left out, since the port compiles no kernel per shape."""
+    counts)``, the reference's ``kernel:<op>`` traces included."""
     with jdispatch.track_dispatch() as jd:
         want = jcall()
     with dispatch.track_dispatch() as td:
         got = tcall()
-    want_d = jd.as_dict()
-    want_d["traces"] = {k: v for k, v in want_d["traces"].items()
-                        if not k.startswith("kernel:")}
-    return got, want, td.as_dict(), want_d
+    return got, want, td.as_dict(), jd.as_dict()
 
 
 def _factorize_both(a, **cfg):
@@ -100,25 +112,66 @@ def test_dispatch_counters(rng, side):
     assert t.wire_bytes == 64 and t.overlapped == 1
 
 
+def _traces_of(records):
+    return [(r["op"], r["traces"]) for r in records]
+
+
 def test_kernel_op_dispatches_equal_reference(rng):
-    """Each kernel-op wrapper counts one dispatch under its own name."""
-    a = rng.standard_normal((2, 40, 8)).astype(np.float32)
-    r1, r2 = (rng.standard_normal((2, 8, 8)).astype(np.float32) for _ in range(2))
+    """Each kernel-op wrapper counts one dispatch under its own name, and a
+    ``kernel:<op>`` trace the first time its signature is seen (the kernel
+    route keys on each operand's last two dims, so the 3-D and 4-D calls
+    share); whole dicts and each traffic record's ``traces`` equal the
+    reference's."""
+    a = rng.standard_normal((2, 43, 9)).astype(np.float32)
+    r1, r2 = (rng.standard_normal((2, 9, 9)).astype(np.float32) for _ in range(2))
 
     def calls(ops, conv):
         ops.cholesky_qr2(conv(a), use_pallas=True)
         ops.cholesky_qr2_r(conv(a), use_pallas=True)
+        ops.gram(conv(a[None].repeat(3, 0)), use_pallas=True)
         ops.combine_gram(conv(r1), conv(r2), use_pallas=True)
-        ops.panel_cross(conv(a), split=3, use_pallas=True)
-        ops.trailing_update(conv(a)[..., 3:], conv(a)[..., :3].copy() if ops is jops
-                            else conv(a)[..., :3].contiguous(),
-                            conv(r1)[..., :3, :5], next_width=2, use_pallas=True)
+        ops.combine_gram(conv(r1), conv(r2))
+        ops.panel_cross(conv(a), split=4, use_pallas=True)
+        ops.panel_cross(conv(a), split=4)
+        ops.panel_cross(conv(a[:1]), split=4)
+        ops.trailing_update(conv(a[..., 4:].copy()), conv(a[..., :4].copy()),
+                            conv(r1[..., :4, :5].copy()), next_width=2, use_pallas=True)
+        ops.pad_cross(conv(a), split=4, out_width=12)
 
+    with jtraffic.track_traffic() as jt, traffic.track_traffic() as tt:
+        _, _, got, want = _counted(lambda: calls(jops, jnp.asarray),
+                                   lambda: calls(tops, torch.from_numpy))
+    assert got == want
+    assert got["dispatches"] == {"gram": 3, "fused_apply_gram": 2, "apply_right": 1,
+                                 "combine_gram": 2, "panel_cross": 3, "trailing_update": 1,
+                                 "pad_cross": 1}
+    assert got["traces"] == {"kernel:gram": 1, "kernel:fused_apply_gram": 2,
+                             "kernel:apply_right": 1, "kernel:combine_gram": 1,
+                             "kernel:panel_cross": 3, "kernel:trailing_update": 1,
+                             "kernel:pad_cross": 1}
+    assert _traces_of(tt.records) == _traces_of(jt.records)
     _, _, got, want = _counted(lambda: calls(jops, jnp.asarray),
                                lambda: calls(tops, torch.from_numpy))
-    assert got["dispatches"] == want["dispatches"]
-    assert got["dispatches"] == {"gram": 2, "fused_apply_gram": 2, "apply_right": 1,
-                                 "combine_gram": 1, "panel_cross": 1, "trailing_update": 1}
+    assert got == want and not got["traces"]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("n", [15, 17], ids=["even", "ragged"])
+def test_kernel_traces_across_blocked_routes(rng, use_pallas, n):
+    """The 3-D pipeline traces its prime and its trailing sweep once, the
+    batched pipeline at the same per-matrix shape no kernel anew, the eager
+    driver its prime (shared with an even pipeline's on the plain route)
+    and one trailing sweep a width; repeats trace nothing.  Every call's
+    whole counts, and each traffic record's ``traces``, equal the
+    reference's."""
+    a = rng.standard_normal((4, 46, n)).astype(np.float32)
+    ab = rng.standard_normal((3, 4, 46, n)).astype(np.float32)
+    cfg = dict(panel_width=5, use_pallas=use_pallas)
+    for x, extra in [(a, {}), (ab, {}), (a, dict(pipeline="off"))] * 2:
+        with jtraffic.track_traffic() as jt, traffic.track_traffic() as tt:
+            _, _, got_d, want_d = _factorize_both(x, **cfg, **extra)
+        assert got_d == want_d, (x.shape, extra)
+        assert _traces_of(tt.records) == _traces_of(jt.records)
 
 
 @pytest.mark.parametrize("p,m_local,n,widths", [(4, 52, 19, (6, 7)), (2, 44, 13, (4, 5))])
@@ -131,7 +184,8 @@ def test_sim_pipeline_zero_retrace(rng, p, m_local, n, widths):
         t0, j0 = dispatch.trace_count(PIPELINE_NAME), jdispatch.trace_count(J_PIPELINE_NAME)
         cold, want, got_d, want_d = _factorize_both(a, panel_width=pw)
         assert got_d == want_d
-        assert got_d["traces"] == {PIPELINE_NAME: 1}
+        assert got_d["traces"] == {PIPELINE_NAME: 1, "kernel:pad_cross": 1,
+                                   "kernel:trailing_update": 1}
         assert got_d["dispatches"] == {PIPELINE_NAME: 1}
         assert dispatch.trace_count(PIPELINE_NAME) - t0 == (
             jdispatch.trace_count(J_PIPELINE_NAME) - j0) == 1
@@ -179,7 +233,8 @@ def test_canonical_configs_share_one_program(rng):
     a = rng.standard_normal((4, 36, 11)).astype(np.float32)
     base = dict(panel_width=4)
     _, _, got_d, want_d = _factorize_both(a, **base)
-    assert got_d == want_d and got_d["traces"] == {PIPELINE_NAME: 1}
+    assert got_d == want_d and got_d["traces"] == {
+        PIPELINE_NAME: 1, "kernel:pad_cross": 1, "kernel:trailing_update": 1}
     for same in (dict(pipeline="on"), dict(fuse="on"), dict(recover="off"),
                  dict(local_r="chol"), dict(parity=3)):
         _, _, got_d, want_d = _factorize_both(a, **base, **same)
@@ -197,7 +252,8 @@ def test_eager_driver_counts_equal_reference(rng):
                 dict(pipeline="off", fuse="off")):
         _, _, got_d, want_d = _factorize_both(a, panel_width=4, **cfg)
         assert got_d == want_d, cfg
-        assert not got_d["traces"] and got_d["rounds"]["blocked_qr_sim"] > 0
+        assert all(k.startswith("kernel:") for k in got_d["traces"])
+        assert got_d["rounds"]["blocked_qr_sim"] > 0
 
 
 def test_batched_one_dispatch_fp_tight(rng):
@@ -228,9 +284,11 @@ def test_tsqr_batched_counts(rng, cfg):
     the kernel ops its body runs (the reference counts them while it
     traces), a warm repeat only the one dispatch."""
     shape = {"cqr2_pallas": (3, 4, 32, 6), "jnp": (3, 4, 28, 5), "cqr2": (2, 4, 36, 7)}
+    kernels = ({"kernel:gram": 1, "kernel:fused_apply_gram": 1}
+               if cfg["local_r"] == "cqr2_pallas" else {})
     ab = rng.standard_normal(shape[cfg["local_r"]]).astype(np.float32)
     cold, want, got_d, want_d = _factorize_both(ab, **cfg)
-    assert got_d == want_d and got_d["traces"] == {"tsqr_batched": 1}
+    assert got_d == want_d and got_d["traces"] == {"tsqr_batched": 1, **kernels}
     np.testing.assert_allclose(cold.r.numpy(), np.asarray(want.r), **TOL)
     before = dispatch.trace_count("tsqr_batched")
     warm, _, got_d, want_d = _factorize_both(ab, **cfg)
@@ -246,7 +304,8 @@ def test_tsqr_coded_counts(rng):
     a = rng.standard_normal((4, 30, 6)).astype(np.float32)
     cfg = dict(local_r="cqr2_pallas", redundancy="coded", parity=2)
     _, _, got_d, want_d = _factorize_both(a, **cfg)
-    assert got_d == want_d and got_d["traces"] == {"tsqr_coded": 1}
+    assert got_d == want_d and got_d["traces"] == {
+        "tsqr_coded": 1, "kernel:gram": 1, "kernel:fused_apply_gram": 1}
     _, _, got_d, want_d = _factorize_both(a, **cfg)
     assert got_d == want_d and not got_d["traces"]
     from repro.collective import FaultSpec as JFaultSpec

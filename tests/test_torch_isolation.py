@@ -31,8 +31,9 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
                          env=env, timeout=300, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["foreign"] == []
-    assert {"repro_torch.qr.api", "repro_torch.kernels.ops",
-            "repro_torch.collective.engine"} <= set(report["modules"])
+    assert {"repro_torch.qr.api", "repro_torch.kernels.ops", "repro_torch.collective.engine",
+            "repro_torch.serve.buckets", "repro_torch.serve.planner",
+            "repro_torch.serve.frontend", "repro_torch.launch.serve"} <= set(report["modules"])
 
 
 def _imported_roots(path: Path) -> set[str]:
