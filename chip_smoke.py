@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six paths, each driven with the launch counts set to 0 just before it and
+Eight paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -30,6 +30,13 @@ read just after:
   continuous batching, each drain one replay of the batched blocked
   pipeline (``panel_cross`` or ``pad_cross``, ``trailing_update``, ``gram``)
   and each request of a faulted drain re-served through the eager driver.
+* **Optimizers, checkpoints, data** at olmo-1b's widths: PowerSGD
+  (``compress_mean_grad`` over 8 replicas of the 8192 x 2048 MLP gradient,
+  ``compress_grad`` with error feedback), ``ft_cqr2_q``, an AdamW, a
+  low-rank and an OrthoSGD step on one layer's weights, an async checkpoint
+  round trip and a buddy store on the card, and ``SyntheticCorpus`` at
+  vocab 50 304 and a 2048-token context.  This path runs no port kernel
+  (the reference's runs no ``pallas_call``); its launch counts must stay 0.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
 one kernel launch for every rank.
@@ -46,6 +53,9 @@ Phases (each raises on failure; the script then exits non-zero):
    lookahead S ≡ panel_cross of the stored A_new, pad_cross's real columns
    ≡ panel_cross, the same real columns under extra zero columns), that two
    runs give the same bits, and each f32 kernel against a float64 product;
+   ``trailing_update`` over a batch against its per-slice calls (A_new bit
+   for bit; S bit for bit where the row split is the same), at ROADMAP
+   C.8's case and at general_full's first update;
 4. drive TSQR ``factorize`` at 2^20 x 32 (all four variants, fault-free and
    with rank 5 dying at exchange 1; ``compute_q`` on the kernel route and,
    for the plain polish Gram, with ``local_r="cqr2"``), at 2^22 x 128
@@ -90,6 +100,13 @@ Phases (each raises on failure; the script then exits non-zero):
    poisoned before a replay and S checked after it; print the planner's
    decisions, throughput, latencies, drain times and the device's busy
    share;
+8b. drive the optimizers, the checkpoint layer and the data pipeline at
+   olmo-1b's widths: PowerSGD's ĝ (ft, ft with a death, dense) within 2e-4
+   of each other and of a rank-8 mean, validity against the plans, the
+   byte counts, error feedback reducing the residual; ``ft_cqr2_q``'s
+   orthogonality and Q against float64; each optimizer step against the
+   port's CPU run or its defining property; the checkpoint restored bit
+   for bit; the data's batches equal to the host's; each step timed;
 9. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound (``gram``
@@ -224,6 +241,26 @@ SERVING_STREAMS = {
 SERVING_FAULT_PERIOD = 3
 SERVING_R_TOL = 5e-4
 SERVING_PLAIN_TOL = 1e-5
+# The optimizer, checkpoint and data phase at olmo-1b's widths
+# (src/repro/configs/olmo_1b.py: d_model 2048, d_ff 8192, vocab 50 304) and a
+# 2048-token context: PowerSGD over R = 8 replica gradients of the MLP's
+# d_ff x d_model weight at rank 8 (512 MiB in f32); the optimizer steps on
+# one layer's seven weights (4 x 2048^2 attention, 2 x 2048 x 8192 gate/up,
+# 8192 x 2048 down); a global batch of 64 sequences in 8 data shards.
+OLMO = {"d_model": 2048, "d_ff": 8192, "vocab": 50_304, "seq_len": 2048}
+OPTIM_REPLICAS = 8
+PSGD_RANK = 8
+DATA_BATCH = 64
+# The reference's own PowerSGD / CholeskyQR2 tolerance (tests/test_optim.py:
+# rtol = atol = 2e-4), here relative to max|want|: the ft and dense routes,
+# a death, the rank-8 mean, the card against the port's CPU run.
+PSGD_TOL = 2e-4
+# CholeskyQR2 of a square Gaussian momentum (condition 1e3-1e4) left
+# ||Q^T Q - I|| at 5e-6 and 2.2e-5 at 2048^2 on the CPU; the tall ones 1.5e-6.
+ORTHO_SGD_TOL = 1e-3
+# An update read back as new_p - p in float64 carries the float32 rounding
+# of new_p (half an ulp of a 0.02-sized weight, ~4e-5 of a 3e-4-sized step).
+STEP_TOL = 1e-3
 
 
 class SmokeFailure(AssertionError):
@@ -266,6 +303,7 @@ def main() -> int:
     smoke.coded_blocked_path()
     smoke.scenarios()
     smoke.serving_path()
+    smoke.optim_path()
     smoke.timings()
     smoke.blocked_timings()
     smoke.combine_gram_timing()
@@ -575,6 +613,48 @@ class Smoke:
                                                       "pad_cross")}))
         for k, (e, _) in errs.items():
             check(e <= F64_TOL, f"{k}: {e:.3e} from float64 > {F64_TOL}")
+        self.batch_vs_slices()
+
+    def batch_vs_slices(self) -> None:
+        """trailing_update over a batch against its per-slice calls: A_new
+        bit for bit (no row reduction feeds it); S bit for bit where
+        ``cross_split(batch, m)`` gives the rows of ``cross_split(1, m)``,
+        else within F64_TOL (the split is a function of (batch, m), so the
+        sums run over other row blocks).  At ROADMAP C.8's case, where the
+        reference's vmapped call is not bitwise, and at general_full's
+        first trailing update."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.kernels import _launch
+
+        tu = self.kernels["trailing_update"]
+        c8 = [torch.from_numpy(np.random.default_rng(i).standard_normal(shape)
+                               .astype(np.float32)).to(DEVICE)
+              for i, shape in enumerate([(2, 5, 3), (2, 5, 1), (2, 1, 3)])]
+        m, b = BLOCKED_SHAPES["general_full"][1], PANEL
+        nt = BLOCKED_SHAPES["general_full"][2] - b
+        main = [self.randn((P, m, nt), 510), self.randn((P, m, b), 511) / m ** 0.5,
+                self.randn((P, b, nt), 512) / b ** 0.5]
+        for label, (a, q, w), nw in (("C.8", c8, 3), ("general_full", main, b)):
+            batch, rows = a.shape[0], a.shape[1]
+            same_split = _launch.cross_split(batch, rows) == _launch.cross_split(1, rows)
+            a_new, s = tu(a, q, w, next_width=nw)
+            a_bits, s_bits, s_err = True, True, 0.0
+            for i in range(batch):
+                ai, si = tu(a[i], q[i], w[i], next_width=nw)
+                a_bits &= self.same_bits(a_new[i], ai)
+                s_bits &= self.same_bits(s[i], si)
+                s_err = max(s_err, self.rel_err(s[i].double(), si.double()))
+            tag = (f"{label} {tuple(a.shape)} b={q.shape[-1]} next_width={nw}: split "
+                   f"{_launch.cross_split(batch, rows)} batched, {_launch.cross_split(1, rows)} "
+                   f"per slice")
+            log(f"[blocked kernels] batch vs per-slice calls at {tag}: A_new bitwise {a_bits}, "
+                f"S bitwise {s_bits}, S rel err {s_err:.2e}")
+            check(a_bits, f"A_new of the batched call differs from its per-slice calls at {tag}")
+            if same_split:
+                check(s_bits, f"S of the batched call differs from its per-slice calls at {tag}")
+            check(s_err <= F64_TOL, f"S batched vs per slice {s_err:.3e} > {F64_TOL} at {tag}")
 
     # -- phase 4: the main path -----------------------------------------------
 
@@ -1618,6 +1698,380 @@ class Smoke:
         if label == "card":
             self.profile(f"serving drain replay {spec.m_pad} x {spec.n_pad} x {plan.max_batch}",
                          lambda: factorize(dev, config, device=DEVICE))
+
+    # -- phase 8b: optimizers, checkpoints, data --------------------------------
+
+    def optim_path(self) -> None:
+        """The FT optimizers, the checkpoint layer and the data pipeline at
+        olmo-1b's widths (``OLMO``), with the launch counts read around the
+        phase: no port kernel runs on this path.  Each check fails the run
+        past its limit; each step is timed on the card."""
+        torch = self.torch
+        counts = self.dispatch.launches
+        phase_t0 = time.perf_counter()
+        counts.reset()
+        self.psgd_checks()
+        params, grads = self.optimizer_steps()
+        self.checkpoint_checks(params, grads)
+        self.data_checks()
+        torch.cuda.synchronize()
+        self.launches["optim"] = counts.as_dict()
+        log(f"[optim] launches in this phase: {self.launches['optim']}")
+        check(not any(self.launches["optim"].values()),
+              f"the optimizer path launched a port kernel: {self.launches['optim']}")
+        log(f"[optim] phase took {time.perf_counter() - phase_t0:.1f} s")
+
+    def step_time(self, label: str, fn, note: str = "") -> None:
+        med, lo, hi = self._median_ms(fn)
+        log(f"[optim] time {label} on {self.card_name}: median {med:.3f} ms (min {lo:.3f}, "
+            f"max {hi:.3f}, 5 warm runs){note}")
+
+    def psgd_checks(self) -> None:
+        """PowerSGD's ``compress_mean_grad`` over R replicas (ft fault-free,
+        ft with slot 5 dead at exchange 1, dense; exact on a rank-r mean;
+        the card against the port's CPU run on a small input),
+        ``compress_grad`` with error feedback on SimComm(P), and
+        ``ft_cqr2_q`` on a d_ff x 128 block over 8 shards."""
+        torch = self.torch
+        from repro_torch.collective import FaultSpec, SimComm, make_plan
+        from repro_torch.optim import lowrank, powersgd
+        from repro_torch.optim.ftqr import ft_cqr2_q
+
+        R, r, m, n = OPTIM_REPLICAS, PSGD_RANK, OLMO["d_ff"], OLMO["d_model"]
+        cfg = powersgd.PowerSGDConfig(rank=r)
+        death = make_plan("redundant", R, FaultSpec.of({5: 1}))
+        tag = f"{R} x {m} x {n}, rank {r}"
+        q0 = self.randn((n, r), 701)
+        g_rep = self.randn((R, m, n), 700)
+        g_ft, q_ft = powersgd.compress_mean_grad(g_rep, q0, cfg=cfg)
+        g_dead, _ = powersgd.compress_mean_grad(g_rep, q0, cfg=cfg, plan=death)
+        g_dense, q_dense = powersgd.compress_mean_grad(g_rep, q0, cfg=cfg, ft=False)
+        torch.cuda.synchronize()
+        check(g_ft.shape == (m, n) and q_ft.shape == (n, r) and bool(g_ft.isfinite().all()),
+              f"compress_mean_grad {tag}: shape {tuple(g_ft.shape)} or non-finite values")
+        errs = {"ft vs dense": self.rel_err(g_ft, g_dense),
+                "new q ft vs dense": self.rel_err(q_ft, q_dense),
+                "slot 5 dead vs fault-free": self.rel_err(g_dead, g_ft)}
+        log(f"[optim] compress_mean_grad {tag}, full-rank replica gradients: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (limit {PSGD_TOL}); the death's plan final_valid "
+            f"{death.final_valid.astype(int).tolist()}, its ĝ bit for bit the fault-free one: "
+            f"{self.same_bits(g_dead, g_ft)}")
+        for k, v in errs.items():
+            check(v <= PSGD_TOL, f"compress_mean_grad {tag}: {k} {v:.3e} > {PSGD_TOL}")
+        self.step_time(f"compress_mean_grad ft {tag}",
+                       lambda: powersgd.compress_mean_grad(g_rep, q0, cfg=cfg))
+        self.step_time(f"compress_mean_grad ft, slot 5 dead, {tag}",
+                       lambda: powersgd.compress_mean_grad(g_rep, q0, cfg=cfg, plan=death))
+        self.step_time(f"compress_mean_grad dense {tag}",
+                       lambda: powersgd.compress_mean_grad(g_rep, q0, cfg=cfg, ft=False))
+        log(f"[optim] compress_mean_grad reads {g_rep.numel() * 4} bytes of replica gradients "
+            f"and sends {4 * r * (m + n)} bytes a replica compressed against {4 * m * n} dense "
+            f"(the {R} replicas' gradients take no less than "
+            f"{g_rep.numel() * 4 / PEAK_BYTES * 1e3:.3f} ms to read at {PEAK_BYTES:.3g} B/s)")
+        del g_rep, g_dead, g_dense
+
+        u, v = self.randn((m, r), 702), self.randn((R, n, r), 703)
+        g_low = torch.einsum("mr,Rnr->Rmn", u, v)                # the mean has rank <= r
+        mean64 = g_low.double().mean(0)
+        exact = {label: self.rel_err(powersgd.compress_mean_grad(g_low, q0, cfg=cfg, **kw)[0]
+                                     .double(), mean64)
+                 for label, kw in (("ft", {}), ("ft, slot 5 dead", {"plan": death}),
+                                   ("dense", {"ft": False}))}
+        log(f"[optim] compress_mean_grad {tag} on a rank-{r} mean: ĝ against the float64 mean "
+            + ", ".join(f"{k} {e:.3e}" for k, e in exact.items()) + f" (limit {PSGD_TOL})")
+        for k, e in exact.items():
+            check(e <= PSGD_TOL, f"compress_mean_grad {k} not exact on a rank-{r} mean: {e:.3e}")
+        del g_low, mean64
+
+        small = self.randn((R, 256, 128), 709)
+        small_q = self.randn((128, r), 710)
+        on_card, _ = powersgd.compress_mean_grad(small, small_q, cfg=cfg)
+        on_cpu, _ = powersgd.compress_mean_grad(small.cpu(), small_q.cpu(), cfg=cfg)
+        err = self.rel_err(on_card.cpu(), on_cpu)
+        log(f"[optim] compress_mean_grad {R} x 256 x 128: the card against the port's CPU run "
+            f"{err:.3e} (limit {PSGD_TOL})")
+        check(err <= PSGD_TOL, f"compress_mean_grad card vs CPU {err:.3e} > {PSGD_TOL}")
+
+        # compress_grad with error feedback: the d_ff x d_model gradient
+        # row-distributed over P model ranks, a decaying spectrum (32 modes
+        # at 0.8^k) plus noise, fed 8 rounds
+        ml = m // P
+        comm = SimComm(P, DEVICE)
+
+        def psum_model(x):
+            return x.sum(0, keepdim=True).expand(x.shape)
+
+        def psum_data(x):
+            return x
+
+        modes = 0.8 ** torch.arange(32, device=DEVICE, dtype=torch.float32)
+        g = ((self.randn((m, 32), 704) * modes) @ self.randn((n, 32), 705).T
+             + 0.01 * self.randn((m, n), 706)).reshape(P, ml, n)
+        gen = torch.Generator(device=DEVICE).manual_seed(707)
+        state0 = powersgd.init_state(gen, (ml, n), cfg, leading=(P,), device=DEVICE)
+        state, acc, resid = state0, torch.zeros_like(g), []
+        g_norm = torch.linalg.norm(g).item()
+        for i in range(8):
+            g_hat, state, stats = powersgd.compress_grad(g, state, comm, cfg=cfg,
+                                                         psum_data=psum_data,
+                                                         psum_model=psum_model, n_data=1)
+            acc += g_hat
+            resid.append(torch.linalg.norm(g - acc / (i + 1)).item() / g_norm)
+        want_bytes = (4 * r * (ml * P + n), 4 * ml * P * n)
+        got_bytes = (stats["data_bytes_compressed"], stats["data_bytes_dense"])
+        log(f"[optim] compress_grad with error feedback on SimComm({P}) at {P} x {ml} x {n}, "
+            f"rank {r}: ‖g − mean ĝ‖/‖g‖ over 8 rounds "
+            + ", ".join(f"{x:.4f}" for x in resid)
+            + f"; data bytes a round {got_bytes[0]} compressed, {got_bytes[1]} dense")
+        check(resid[-1] < 0.9 and resid[-1] < resid[0],
+              f"error feedback did not reduce the residual: {resid}")
+        check(got_bytes == want_bytes, f"compress_grad byte counts {got_bytes} != {want_bytes}")
+        check(bool(stats["valid"].all()), f"compress_grad fault-free validity {stats['valid']}")
+        spec = FaultSpec.of({5: 1})
+        base, _, _ = powersgd.compress_grad(g, state0, comm, cfg=cfg, psum_data=psum_data,
+                                            psum_model=psum_model, n_data=1)
+        for variant in ("redundant", "selfhealing"):
+            vcfg = powersgd.PowerSGDConfig(rank=r, variant=variant)
+            got, _, st = powersgd.compress_grad(g, state0, comm, cfg=vcfg, psum_data=psum_data,
+                                                psum_model=psum_model, n_data=1, fault_spec=spec)
+            plan = make_plan(variant, P, spec)
+            valid = st["valid"].cpu().numpy()
+            line = (f"[optim] compress_grad {variant}, rank 5 dead at exchange 1: valid "
+                    f"{valid.astype(int).tolist()} (the plan's {plan.final_valid.astype(int).tolist()})")
+            check((valid == plan.final_valid).all(), line)
+            if valid.all():
+                err = self.rel_err(got, base)
+                line += f", ĝ against the fault-free round {err:.3e} (limit {PSGD_TOL})"
+                check(err <= PSGD_TOL, line)
+            else:
+                line += (f", NaN in {int(got.isnan().sum())} of {got.numel()} entries (an invalid "
+                         "rank's R reaches every rank through form_q's Gram all-reduce, as in the "
+                         "reference)")
+            log(line)
+        self.step_time(f"compress_grad round {P} x {ml} x {n}",
+                       lambda: powersgd.compress_grad(g, state0, comm, cfg=cfg,
+                                                      psum_data=psum_data,
+                                                      psum_model=psum_model, n_data=1))
+        del g, acc, state, state0, base
+
+        a = self.randn((m, 128), 708)
+        qh, rh = torch.linalg.qr(a.double())
+        q64 = qh * torch.where(rh.diagonal() < 0, -1.0, 1.0).double()
+        eye = torch.eye(128, dtype=torch.float64, device=DEVICE)
+        runs = {"ft_cqr2_q (8 shards)": lambda: ft_cqr2_q(a, 8),
+                "ft_cqr2_q (8 shards, shard 5 dead at exchange 1)":
+                    lambda: ft_cqr2_q(a, 8, plan=death),
+                "gram_cqr2_q": lambda: lowrank.gram_cqr2_q(a)}
+        for label, fn in runs.items():
+            q = fn().double()
+            ortho = (q.mT @ q - eye).abs().max().item()
+            err = self.rel_err(q, q64)
+            log(f"[optim] {label} at {m} x 128: ‖QᵀQ − I‖max {ortho:.3e} (limit {ORTHO_TOL}), "
+                f"Q against float64 {err:.3e} (limit {F64_TOL})")
+            check(ortho <= ORTHO_TOL and err <= F64_TOL, f"{label}: {ortho:.3e}, {err:.3e}")
+            self.step_time(f"{label} {m} x 128", fn)
+
+    def optimizer_steps(self):
+        """An AdamW, a low-rank (a refresh step, then a plain one) and an
+        OrthoSGD step on one layer's weights; AdamW and the low-rank state
+        against the port's CPU run of the same step, the low-rank basis
+        orthonormal with the update in its span, the OrthoSGD direction
+        orthonormal.  Returns the AdamW step's parameters and gradients."""
+        torch = self.torch
+        from repro_torch.optim import adamw, lowrank, orthosgd
+
+        d, ff = OLMO["d_model"], OLMO["d_ff"]
+        shapes = {"attn_q": (d, d), "attn_k": (d, d), "attn_v": (d, d), "attn_o": (d, d),
+                  "mlp_gate": (d, ff), "mlp_up": (d, ff), "mlp_down": (ff, d)}
+        params = {k: self.randn(s, 720 + i) * 0.02 for i, (k, s) in enumerate(shapes.items())}
+        grads = {k: self.randn(s, 740 + i) for i, (k, s) in enumerate(shapes.items())}
+        cpu_p = {k: v.cpu() for k, v in params.items()}
+        cpu_g = {k: v.cpu() for k, v in grads.items()}
+        n_params = sum(p.numel() for p in params.values())
+        log(f"[optim] one olmo-1b layer: {n_params} parameters ({n_params * 4} bytes in f32)")
+
+        def delta(new, old):
+            return new.double() - old.double()
+
+        a_cfg = adamw.AdamWConfig(warmup=0)
+        new_p, a_state, metrics = adamw.update(a_cfg, params, grads, adamw.init(params))
+        want_p, want_state, _ = adamw.update(a_cfg, cpu_p, cpu_g, adamw.init(cpu_p))
+        errs = {}
+        for k in shapes:
+            errs[k] = max(self.rel_err(delta(new_p[k], params[k]).cpu(),
+                                       delta(want_p[k], cpu_p[k])),
+                          self.rel_err(a_state["m"][k].cpu(), want_state["m"][k]),
+                          self.rel_err(a_state["v"][k].cpu(), want_state["v"][k]))
+        log(f"[optim] adamw step (lr {float(metrics['lr']):.4e}, grad norm "
+            f"{float(metrics['grad_norm']):.1f}): the card's update and moments against the "
+            f"port's CPU run, worst leaf {max(errs.values()):.3e} (limit {STEP_TOL})")
+        check(max(errs.values()) <= STEP_TOL, f"adamw step card vs CPU {errs}")
+        self.step_time("adamw step, one layer",
+                       lambda: adamw.update(a_cfg, params, grads, adamw.init(params)))
+
+        # The low-rank update does not read the weights, so it steps zero
+        # weights here: the new weights are then the update, unrounded.
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        l_cfg = lowrank.LowRankConfig()
+        l0 = lowrank.init(zeros, l_cfg)
+        p1, l1 = lowrank.update(l_cfg, zeros, grads, l0)
+        want1 = lowrank.update(l_cfg, cpu_p, cpu_g, lowrank.init(cpu_p, l_cfg))[1]
+        worst = {}
+        for k in shapes:
+            st, want = l1["per_param"][k], want1["per_param"][k]
+            b = st["basis"].double()
+            step = p1[k].double()
+            span = (step - step @ b @ b.mT).abs().max().item() / step.abs().max().item()
+            ortho = (b.mT @ b - torch.eye(b.shape[-1], dtype=torch.float64, device=DEVICE)
+                     ).abs().max().item()
+            state_err = max(self.rel_err(st[x].cpu(), want[x]) for x in ("basis", "m", "v"))
+            worst[k] = (ortho, span, state_err, tuple(st["m"].shape))
+            check(ortho <= ORTHO_TOL and span <= STEP_TOL and state_err <= PSGD_TOL,
+                  f"lowrank refresh step on {k}: ‖BᵀB − I‖ {ortho:.3e}, update outside the "
+                  f"basis {span:.3e}, state vs CPU {state_err:.3e}")
+        log("[optim] lowrank refresh step, by leaf (‖BᵀB − I‖max, update outside span(B), "
+            "basis/moments against the port's CPU run, moment shape): "
+            + json.dumps({k: [f"{a:.2e}", f"{b:.2e}", f"{c:.2e}", list(s)]
+                          for k, (a, b, c, s) in worst.items()})
+            + f" (limits {ORTHO_TOL}, {STEP_TOL}, {PSGD_TOL})")
+        p2, l2 = lowrank.update(l_cfg, p1, grads, l1)
+        check(all(torch.equal(l2["per_param"][k]["basis"], l1["per_param"][k]["basis"])
+                  for k in shapes), "the low-rank basis changed on a step without a refresh")
+        check(all(bool(p2[k].isfinite().all()) for k in shapes), "lowrank step 2: non-finite")
+        self.step_time("lowrank step with the basis refresh, one layer",
+                       lambda: lowrank.update(l_cfg, zeros, grads, l0))
+        self.step_time("lowrank step, one layer", lambda: lowrank.update(l_cfg, p1, grads, l1))
+        del p1, p2, l1, l2, l0, zeros
+
+        o_cfg = orthosgd.OrthoSGDConfig()
+        o_state = orthosgd.init(params)
+        po, _ = orthosgd.update(o_cfg, params, grads, o_state)
+        orth = {}
+        for k in shapes:
+            eff = grads[k] + o_cfg.momentum * grads[k]           # nesterov, first step
+            q = orthosgd._orth_update(eff).double()
+            mm, nn = q.shape
+            q = q / (max(mm, nn) / nn) ** 0.5
+            gram = q.mT @ q if mm >= nn else q @ q.mT
+            ortho = (gram - torch.eye(gram.shape[0], dtype=torch.float64, device=DEVICE)
+                     ).abs().max().item()
+            took = (delta(po[k], params[k]) + o_cfg.lr * orthosgd._orth_update(eff).double())
+            off = took.abs().max().item() / (o_cfg.lr * q.abs().max().item())
+            orth[k] = (ortho, off)
+            check(ortho <= ORTHO_SGD_TOL and off <= STEP_TOL,
+                  f"orthosgd step on {k}: ‖QᵀQ − I‖ {ortho:.3e}, step off its direction {off:.3e}")
+        log("[optim] orthosgd step, by leaf (‖QᵀQ − I‖max of the direction, the step off "
+            "−lr·Q): " + json.dumps({k: [f"{a:.2e}", f"{b:.2e}"] for k, (a, b) in orth.items()})
+            + f" (limits {ORTHO_SGD_TOL}, {STEP_TOL})")
+        self.step_time("orthosgd step, one layer",
+                       lambda: orthosgd.update(o_cfg, params, grads, o_state))
+        self.step_time("orthosgd step with ft_shards=8, one layer",
+                       lambda: orthosgd.update(orthosgd.OrthoSGDConfig(ft_shards=8), params,
+                                               grads, o_state))
+        return {"params": new_p, "adamw": a_state}, grads
+
+    def checkpoint_checks(self, state, grads) -> None:
+        """The AdamW step's parameters and state saved asynchronously and
+        blocking, restored on the card bit for bit, keep-k GC; a BuddyStore
+        of the gradients' rows on the card, recovered bit for bit after
+        2^2 - 1 deaths."""
+        import shutil
+
+        torch = self.torch
+        from repro_torch.checkpoint import BuddyStore, CheckpointManager
+        from repro_torch.optim._tree import leaves
+
+        root = Path(__file__).resolve().parent / "build" / "smoke_checkpoints"
+        shutil.rmtree(root, ignore_errors=True)
+        mgr = CheckpointManager(str(root), keep=2)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+        try:
+            t0 = time.perf_counter()
+            mgr.save(1, state)
+            block_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mgr.save(2, state, {"save": "async"}, block=False)
+            returned = time.perf_counter() - t0
+            mgr.wait()
+            async_s = time.perf_counter() - t0
+            check(mgr.steps() == [1, 2], f"checkpoints on disk: {mgr.steps()}")
+            mgr.save(3, state, block=False)
+            mgr.wait()
+            check(mgr.steps() == [2, 3], f"keep=2 left steps {mgr.steps()}")
+            t0 = time.perf_counter()
+            restored, meta = mgr.restore(state, step=2)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(meta == {"save": "async", "step": 2, "n_arrays": len(leaves(state))},
+                  f"manifest {meta}")
+            for got in (restored, mgr.restore(state)[0]):
+                same = all(a.device == b.device and (self.same_bits(a, b) if a.is_floating_point()
+                                                     else torch.equal(a, b))
+                           for a, b in zip(leaves(got), leaves(state)))
+                check(same, "the restored checkpoint differs from the saved state")
+        finally:
+            mgr.wait()
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"[optim] checkpoint of {nbytes} bytes (one layer's AdamW step: parameters, m, v): "
+            f"the async-saved steps 2 and 3 restored on the card bit for bit; keep=2 kept [2, 3]")
+        log(f"[optim] checkpoint on {self.card_name}: async save returned in "
+            f"{returned * 1e3:.1f} ms and was on disk in {async_s:.3f} s "
+            f"({nbytes / async_s / 1e6:.1f} MB/s); blocking save {block_s:.3f} s "
+            f"({nbytes / block_s / 1e6:.1f} MB/s); restore to the card {restore_s:.3f} s "
+            f"({nbytes / restore_s / 1e6:.1f} MB/s)")
+
+        rows = grads["mlp_down"].reshape(P, -1, grads["mlp_down"].shape[-1])
+        store = BuddyStore(P)
+        store.checkpoint(1, {r: rows[r] for r in range(P)}, levels=2)
+        for dead in (0, 3, 5):
+            store.fail(dead)
+        back = [store.recover(r) for r in range(P)]
+        check(all(s == 1 and self.same_bits(x, rows[r]) for r, (s, x) in enumerate(back)),
+              "BuddyStore lost a shard within 2^2 - 1 deaths")
+        log(f"[optim] BuddyStore({P}) on the card, 2 levels: ranks 0, 3, 5 dead, every shard "
+            f"recovered bit for bit, copies left {[store.copies(r) for r in range(P)]}")
+
+    def data_checks(self) -> None:
+        """SyntheticCorpus at olmo-1b's vocab and a 2048-token context: the
+        card's batch equal to the host's, shards composing into the global
+        batch, tokens in range, labels shifted; the prefetcher's batches and
+        its thread gone after close."""
+        torch = self.torch
+        from repro_torch.data import DataConfig, Prefetcher, SyntheticCorpus
+
+        cfg = DataConfig(vocab=OLMO["vocab"], seq_len=OLMO["seq_len"], global_batch=DATA_BATCH)
+        corpus = SyntheticCorpus(cfg, device=DEVICE)
+        for step in range(2):
+            full = corpus.batch(step)
+            host = corpus.host_batch(step)
+            shards = [corpus.batch(step, shard=s, n_shards=P)["tokens"] for s in range(P)]
+            tok = full["tokens"]
+            check(tok.device.type == torch.device(DEVICE).type
+                  and tok.shape == (DATA_BATCH, OLMO["seq_len"])
+                  and tok.dtype == torch.int32, f"batch {tok.device} {tuple(tok.shape)}")
+            check(torch.equal(tok.cpu(), torch.from_numpy(host["tokens"].copy()))
+                  and torch.equal(full["labels"].cpu(), torch.from_numpy(host["labels"].copy())),
+                  "the card's batch differs from the host's")
+            check(torch.equal(torch.cat(shards), tok), "the shards do not compose the batch")
+            check(torch.equal(tok[:, 1:], full["labels"][:, :-1]), "labels are not shifted")
+            check(0 <= int(tok.min()) and int(tok.max()) < OLMO["vocab"], "token out of range")
+        pf = Prefetcher(corpus, start_step=0, depth=2)
+        try:
+            got = [pf.next() for _ in range(4)]
+        finally:
+            pf.close()
+        check(not pf._thread.is_alive(), "the prefetcher's thread outlived close()")
+        check([s for s, _ in got] == [0, 1, 2, 3]
+              and all(torch.equal(b["tokens"], corpus.batch(s)["tokens"]) for s, b in got),
+              "the prefetcher's batches differ from the corpus's")
+        log(f"[optim] data at vocab {OLMO['vocab']}, seq_len {OLMO['seq_len']}, global batch "
+            f"{DATA_BATCH} in {P} shards: the card's batches equal the host's, the shards "
+            f"compose, the prefetcher delivered steps 0-3 and its thread is gone after close()")
+        tokens = DATA_BATCH * OLMO["seq_len"]
+        self.step_time(f"data batch (host build + handover, {tokens} tokens)",
+                       lambda: corpus.batch(5))
+        self.step_time(f"data shard (1 of {P})", lambda: corpus.batch(5, shard=3, n_shards=P))
 
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over

@@ -33,7 +33,11 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert report["foreign"] == []
     assert {"repro_torch.qr.api", "repro_torch.kernels.ops", "repro_torch.collective.engine",
             "repro_torch.serve.buckets", "repro_torch.serve.planner",
-            "repro_torch.serve.frontend", "repro_torch.launch.serve"} <= set(report["modules"])
+            "repro_torch.serve.frontend", "repro_torch.launch.serve",
+            "repro_torch.optim.powersgd", "repro_torch.optim.ftqr", "repro_torch.optim.lowrank",
+            "repro_torch.optim.orthosgd", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.manager", "repro_torch.checkpoint.replicated",
+            "repro_torch.data.pipeline"} <= set(report["modules"])
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -140,6 +140,27 @@ def test_strided_views_take_no_copy_and_match_dense(rng):
         _launch.strided("op", "a", torch.zeros(4, 6).T)
 
 
+def test_batched_a_new_equals_per_slice_calls_at_the_c8_case():
+    """ROADMAP C.8: at batch 2, m 5, n_t 3, b 1, float32, seed 0 the
+    reference's vmapped ``ops.trailing_update(use_pallas=True)`` and its
+    per-slice calls differ in the last bit of A_new (0.70097554 against
+    0.7009756, tests/test_trailing_property.py::
+    test_batch_dims_match_stacked_singles).  The port's batched call holds
+    that contract: at b = 1 each entry of A_new is one product and one
+    subtraction, so no summation order enters.  S is not compared: the
+    plain version forms it with a batched product whose order the host's
+    BLAS picks per shape (chip_smoke.py holds S on the card)."""
+    batch, m, nt, b, seed = 2, 5, 3, 1, 0
+    a, q, w = (torch.from_numpy(np.random.default_rng(seed + i).standard_normal(shape)
+                                .astype(np.float32))
+               for i, shape in enumerate([(batch, m, nt), (batch, m, b), (batch, b, nt)]))
+    nw = min(3, nt)
+    a_new, _ = ops.trailing_update(a, q, w, next_width=nw, use_pallas=True)
+    for i in range(batch):
+        ai, _ = ops.trailing_update(a[i], q[i], w[i], next_width=nw, use_pallas=True)
+        assert torch.equal(a_new[i], ai)
+
+
 @pytest.mark.parametrize("batch,m", [(1, 1), (8, 131072), (8, 1000), (64, 33), (1, 4096)])
 def test_cross_split_covers_every_row_once(batch, m):
     rows, splits = _launch.cross_split(batch, m)
