@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight paths, each driven with the launch counts set to 0 just before it and
+Nine paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -37,6 +37,12 @@ read just after:
   round trip and a buddy store on the card, and ``SyntheticCorpus`` at
   vocab 50 304 and a 2048-token context.  This path runs no port kernel
   (the reference's runs no ``pallas_call``); its launch counts must stay 0.
+* **Model serving** (``repro_torch.models``): qwen3-0.6b at its published
+  config through ``launch/serve.py``'s ``--mode model --full`` path (batch
+  4, prompt 512, 64 greedy steps), and olmo-1b, minitron-4b, gemma2-9b,
+  qwen2-moe-a2.7b, mixtral-8x22b (4 of 56 layers) and qwen2-vl-72b (8 of
+  80) at full widths in bf16.  The models' attention is plain tensor code
+  (the reference's reaches no ``pallas_call``); the launch counts stay 0.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
 one kernel launch for every rank.
@@ -107,6 +113,14 @@ Phases (each raises on failure; the script then exits non-zero):
    orthogonality and Q against float64; each optimizer step against the
    port's CPU run or its defining property; the checkpoint restored bit
    for bit; the data's batches equal to the host's; each step timed;
+10. (run before 9) serve the transformer zoo: qwen3-0.6b through the
+   launcher's path and the six other architectures (prefill 4 × 512,
+   decode 16 steps), each timed cold and warm with its peak memory, ids in
+   range and logits finite; then at full widths in float32, one unit each,
+   prefill-then-decode against forward (3e-3 relative to max|logit|, 5e-3
+   over 8 more steps), a forward rerun bit for bit, the ring buffer decoded
+   past its window, and qwen3-0.6b and qwen2-moe-a2.7b against the port's
+   CPU run (logits within 1e-4, MoE expert ids and slots equal);
 9. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound (``gram``
@@ -241,13 +255,40 @@ SERVING_STREAMS = {
 SERVING_FAULT_PERIOD = 3
 SERVING_R_TOL = 5e-4
 SERVING_PLAIN_TOL = 1e-5
-# The optimizer, checkpoint and data phase at olmo-1b's widths
-# (src/repro/configs/olmo_1b.py: d_model 2048, d_ff 8192, vocab 50 304) and a
-# 2048-token context: PowerSGD over R = 8 replica gradients of the MLP's
-# d_ff x d_model weight at rank 8 (512 MiB in f32); the optimizer steps on
-# one layer's seven weights (4 x 2048^2 attention, 2 x 2048 x 8192 gate/up,
-# 8192 x 2048 down); a global batch of 64 sequences in 8 data shards.
-OLMO = {"d_model": 2048, "d_ff": 8192, "vocab": 50_304, "seq_len": 2048}
+# The optimizer, checkpoint and data phase at olmo-1b's widths, read from the
+# port's registry (repro_torch.configs.get_config("olmo-1b"): d_model 2048,
+# d_ff 8192, vocab 50 304) and a 2048-token context: PowerSGD over R = 8
+# replica gradients of the MLP's d_ff x d_model weight at rank 8 (512 MiB in
+# f32); the optimizer steps on one layer's seven weights (4 x 2048^2
+# attention, 2 x 2048 x 8192 gate/up, 8192 x 2048 down); a global batch of 64
+# sequences in 8 data shards.
+OLMO_ARCH = "olmo-1b"
+OLMO_SEQ_LEN = 2048
+# Phase 10, model serving (repro_torch.models): qwen3-0.6b at its published
+# config through launch/serve.py's --mode model path; the six other
+# transformer-family architectures at full widths in bf16, at full depth
+# where the bf16 weights fit in 40 GB and cut where they do not (the cut is
+# logged), each prefilling 4 x 512 tokens and decoding 16 greedy steps.
+MODEL_LAUNCH = ["--arch", "qwen3-0.6b", "--full", "--batch", "4", "--prompt-len", "512",
+                "--gen", "64"]
+MODEL_ZOO = {"olmo-1b": None, "minitron-4b": None, "gemma2-9b": None,
+             "qwen2-moe-a2.7b": None, "mixtral-8x22b": 4, "qwen2-vl-72b": 8}
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 512, 16
+# Correctness at full widths in float32, one unit of each architecture (two
+# layers for gemma2): prefill(t[:s-1]) then decode_step(t[s-1]) against
+# forward(t) at s = 64, then 8 more decode steps, within the reference's
+# own tolerances (tests/test_serving.py: 3e-3, and 5e-3 over several steps),
+# here relative to max|logit|; the ring buffer at mixtral's widths with a
+# 64-slot window, prefilled past it (80 tokens) and decoded to 104.
+MODEL_CHECK_S, MODEL_CHECK_STEPS = 64, 8
+SERVE_TOL, MULTI_TOL = 3e-3, 5e-3
+RING_WINDOW, RING_PREFILL, RING_END = 64, 80, 104
+# The card against the port's CPU run on the same weights and tokens, both in
+# float32 with TF32 off: the two differ only in summation order, ~1e-6 of
+# max|logit| through one unit; a TF32 product (10-bit mantissa, ~5e-4 per
+# product) or a bf16 one lands past this bound.
+CARD_CPU_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b")
+CARD_CPU_TOL = 1e-4
 OPTIM_REPLICAS = 8
 PSGD_RANK = 8
 DATA_BATCH = 64
@@ -304,6 +345,7 @@ def main() -> int:
     smoke.scenarios()
     smoke.serving_path()
     smoke.optim_path()
+    smoke.model_path()
     smoke.timings()
     smoke.blocked_timings()
     smoke.combine_gram_timing()
@@ -318,6 +360,7 @@ def main() -> int:
 
 class Smoke:
     def __init__(self, torch):
+        from repro_torch import configs
         from repro_torch.kernels import _build, dispatch, ops, ref
         from repro_torch.kernels.apply_right import apply_right
         from repro_torch.kernels.combine_gram import combine_gram
@@ -340,6 +383,10 @@ class Smoke:
         self.replay_ms: dict[str, tuple[float, float]] = {}  # label -> (replay, eager)
         self.ptxas: dict[str, str] = {}  # kernel -> ptxas -v of its main-path instantiation
         self.card_name = ""
+        self.configs = configs
+        olmo = configs.get_config(OLMO_ARCH)
+        self.olmo = {"d_model": olmo.d_model, "d_ff": olmo.d_ff, "vocab": olmo.vocab,
+                     "seq_len": OLMO_SEQ_LEN}
 
     # -- helpers --------------------------------------------------------------
 
@@ -1703,7 +1750,7 @@ class Smoke:
 
     def optim_path(self) -> None:
         """The FT optimizers, the checkpoint layer and the data pipeline at
-        olmo-1b's widths (``OLMO``), with the launch counts read around the
+        olmo-1b's widths (``self.olmo``), with the launch counts read around the
         phase: no port kernel runs on this path.  Each check fails the run
         past its limit; each step is timed on the card."""
         torch = self.torch
@@ -1737,7 +1784,7 @@ class Smoke:
         from repro_torch.optim import lowrank, powersgd
         from repro_torch.optim.ftqr import ft_cqr2_q
 
-        R, r, m, n = OPTIM_REPLICAS, PSGD_RANK, OLMO["d_ff"], OLMO["d_model"]
+        R, r, m, n = OPTIM_REPLICAS, PSGD_RANK, self.olmo["d_ff"], self.olmo["d_model"]
         cfg = powersgd.PowerSGDConfig(rank=r)
         death = make_plan("redundant", R, FaultSpec.of({5: 1}))
         tag = f"{R} x {m} x {n}, rank {r}"
@@ -1881,7 +1928,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.optim import adamw, lowrank, orthosgd
 
-        d, ff = OLMO["d_model"], OLMO["d_ff"]
+        d, ff = self.olmo["d_model"], self.olmo["d_ff"]
         shapes = {"attn_q": (d, d), "attn_k": (d, d), "attn_v": (d, d), "attn_o": (d, d),
                   "mlp_gate": (d, ff), "mlp_up": (d, ff), "mlp_down": (ff, d)}
         params = {k: self.randn(s, 720 + i) * 0.02 for i, (k, s) in enumerate(shapes.items())}
@@ -2040,7 +2087,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.data import DataConfig, Prefetcher, SyntheticCorpus
 
-        cfg = DataConfig(vocab=OLMO["vocab"], seq_len=OLMO["seq_len"], global_batch=DATA_BATCH)
+        cfg = DataConfig(vocab=self.olmo["vocab"], seq_len=self.olmo["seq_len"], global_batch=DATA_BATCH)
         corpus = SyntheticCorpus(cfg, device=DEVICE)
         for step in range(2):
             full = corpus.batch(step)
@@ -2048,14 +2095,14 @@ class Smoke:
             shards = [corpus.batch(step, shard=s, n_shards=P)["tokens"] for s in range(P)]
             tok = full["tokens"]
             check(tok.device.type == torch.device(DEVICE).type
-                  and tok.shape == (DATA_BATCH, OLMO["seq_len"])
+                  and tok.shape == (DATA_BATCH, self.olmo["seq_len"])
                   and tok.dtype == torch.int32, f"batch {tok.device} {tuple(tok.shape)}")
             check(torch.equal(tok.cpu(), torch.from_numpy(host["tokens"].copy()))
                   and torch.equal(full["labels"].cpu(), torch.from_numpy(host["labels"].copy())),
                   "the card's batch differs from the host's")
             check(torch.equal(torch.cat(shards), tok), "the shards do not compose the batch")
             check(torch.equal(tok[:, 1:], full["labels"][:, :-1]), "labels are not shifted")
-            check(0 <= int(tok.min()) and int(tok.max()) < OLMO["vocab"], "token out of range")
+            check(0 <= int(tok.min()) and int(tok.max()) < self.olmo["vocab"], "token out of range")
         pf = Prefetcher(corpus, start_step=0, depth=2)
         try:
             got = [pf.next() for _ in range(4)]
@@ -2065,13 +2112,251 @@ class Smoke:
         check([s for s, _ in got] == [0, 1, 2, 3]
               and all(torch.equal(b["tokens"], corpus.batch(s)["tokens"]) for s, b in got),
               "the prefetcher's batches differ from the corpus's")
-        log(f"[optim] data at vocab {OLMO['vocab']}, seq_len {OLMO['seq_len']}, global batch "
+        log(f"[optim] data at vocab {self.olmo['vocab']}, seq_len {self.olmo['seq_len']}, global batch "
             f"{DATA_BATCH} in {P} shards: the card's batches equal the host's, the shards "
             f"compose, the prefetcher delivered steps 0-3 and its thread is gone after close()")
-        tokens = DATA_BATCH * OLMO["seq_len"]
+        tokens = DATA_BATCH * self.olmo["seq_len"]
         self.step_time(f"data batch (host build + handover, {tokens} tokens)",
                        lambda: corpus.batch(5))
         self.step_time(f"data shard (1 of {P})", lambda: corpus.batch(5, shard=3, n_shards=P))
+
+    # -- phase 10: model serving -------------------------------------------------
+
+    def model_path(self) -> None:
+        """The transformer zoo served on the card (``repro_torch.models``
+        through the launcher's ``--mode model`` path), with the launch
+        counts read around the phase: no port kernel runs on this path.
+        bf16 products accumulate in f32 here, as the reference's do."""
+        torch = self.torch
+        counts = self.dispatch.launches
+        phase_t0 = time.perf_counter()
+        matmul = torch.backends.cuda.matmul
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        counts.reset()
+        try:
+            self.model_launcher()
+            self.model_zoo()
+            self.model_checks()
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+        torch.cuda.synchronize()
+        self.launches["model"] = counts.as_dict()
+        log(f"[model] launches in this phase: {self.launches['model']}")
+        check(not any(self.launches["model"].values()),
+              f"the model path launched a port kernel: {self.launches['model']}")
+        log(f"[model] phase took {time.perf_counter() - phase_t0:.1f} s")
+
+    def log_run(self, run, b: int, s: int, gen: int, label: str, vocab: int,
+                base: int) -> None:
+        """The serving run's times, rates and peak memory (above ``base``,
+        what the process held before the model's weights); its ids in range
+        and its last logits finite."""
+        torch = self.torch
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        log(f"[model] {run.arch} {label} on {self.card_name}: prefill({b}x{s}) "
+            f"{run.t_prefill * 1e3:.3f} ms ({b * s / run.t_prefill:.0f} tokens/s), decode {gen} "
+            f"steps {run.t_decode * 1e3:.3f} ms ({run.t_decode / gen * 1e3:.3f} ms/token, "
+            f"{b * gen / run.t_decode:.1f} tokens/s), peak memory {peak:.2f} GB")
+        check(tuple(run.ids.shape) == (b, gen) and 0 <= int(run.ids.min())
+              and int(run.ids.max()) < vocab, f"{run.arch}: generated ids {tuple(run.ids.shape)}")
+        check(run.logits.dtype == torch.float32 and bool(run.logits.isfinite().all()),
+              f"{run.arch}: non-finite logits")
+
+    def model_launcher(self) -> None:
+        """qwen3-0.6b at its published config through ``run_model``, the
+        body of ``python -m repro_torch.launch.serve --mode model --full``:
+        a cold run (first calls of each shape), then a warm one."""
+        torch = self.torch
+        from repro_torch.launch import serve
+
+        args = serve.parse_args(MODEL_LAUNCH + ["--device", DEVICE])
+        for label in ("cold", "warm"):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run = serve.run_model(args)
+            self.log_run(run, args.batch, args.prompt_len, args.gen,
+                         f"{label}, {' '.join(MODEL_LAUNCH)}",
+                         self.configs.get_config(args.arch).vocab, base)
+        log(f"[model] arch={run.arch} prefill({args.batch}x{args.prompt_len})="
+            f"{run.t_prefill*1e3:.1f}ms decode {args.gen} steps={run.t_decode*1e3:.1f}ms "
+            f"({run.t_decode/args.gen*1e3:.2f} ms/tok)")
+        log(f"[model] generated ids[0]: {run.ids[0].tolist()}")
+        # where a warm prefill and one decode step spend device time (the
+        # launcher's parameters and batch, drawn again from seed 0)
+        from repro_torch.models import api
+
+        cfg = self.configs.get_config(args.arch)
+        params = api.init(0, cfg, DEVICE)
+        batch = api.synth_batch(0, cfg, "prefill", args.batch, args.prompt_len, DEVICE)
+        s_max = args.prompt_len + args.gen
+        with torch.inference_mode():
+            logits, cache = api.prefill(params, batch, cfg, s_max=s_max)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            self.profile(f"{args.arch} prefill {args.batch} x {args.prompt_len}",
+                         lambda: api.prefill(params, batch, cfg, s_max=s_max))
+            self.profile(f"{args.arch} decode step at position {args.prompt_len}",
+                         lambda: api.decode_step(params, cache, tok, cfg))
+        del params, batch, cache
+
+    def model_zoo(self) -> None:
+        """The other transformer architectures at full widths in bf16, each
+        freed before the next."""
+        torch = self.torch
+        from repro_torch.launch.serve import generate
+        from repro_torch.models import api
+        from repro_torch.optim._tree import leaves
+
+        for arch, depth in MODEL_ZOO.items():
+            cfg = self.configs.get_config(arch)
+            if depth:
+                log(f"[model] {arch}: depth cut from {cfg.n_layers} to {depth} layers "
+                    f"(its bf16 weights exceed 40 GB at full depth)")
+                cfg = dataclasses.replace(cfg, n_layers=depth)
+            t0 = time.perf_counter()
+            base = torch.cuda.memory_allocated()
+            params = api.init(11, cfg, DEVICE)
+            batch = api.synth_batch(12, cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, DEVICE)
+            torch.cuda.synchronize()
+            n = sum(t.numel() for t in leaves(params))
+            log(f"[model] {arch}: {cfg.n_layers} layers, {n / 1e9:.3f} B parameters "
+                f"({sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9:.2f} GB "
+                f"in {cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
+            for label in ("cold", "warm"):
+                torch.cuda.reset_peak_memory_stats()
+                run = generate(params, batch, cfg, MODEL_GEN, s_max=MODEL_PROMPT + MODEL_GEN)
+                self.log_run(run, MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, label, cfg.vocab, base)
+            log(f"[model] {arch} generated ids[0]: {run.ids[0].tolist()}")
+            del params, batch, run
+            torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def recorded_routes(self):
+        """The MoE routes (expert ids) and dispatch slots that the calls
+        inside the block compute, in order."""
+        from repro_torch.models import moe
+
+        seen = []
+        route, slots = moe._route, moe._dispatch_slots
+
+        def record_route(p, x, cfg):
+            w, ids = route(p, x, cfg)
+            seen.append(ids)
+            return w, ids
+
+        def record_slots(ids, n_experts, cap):
+            out = slots(ids, n_experts, cap)
+            seen.append(out)
+            return out
+
+        moe._route, moe._dispatch_slots = record_route, record_slots
+        try:
+            yield seen
+        finally:
+            moe._route, moe._dispatch_slots = route, slots
+
+    def model_checks(self) -> None:
+        """Each architecture at full widths in float32, one unit: a forward
+        rerun bit for bit; for ``CARD_CPU_ARCHS`` the card against the
+        port's CPU run (the MoE at its published capacity, drops included);
+        serving ≡ forward; then the ring buffer past its window.
+
+        A MoE forward at the published capacity factor drops assignments,
+        and decode's per-token gather drops none, so the two agree only
+        where nothing is dropped (the reference's own test runs at
+        ``smoke()``'s capacity factor 4.0).  Serving ≡ forward is checked at
+        ``capacity_factor = n_experts / top_k``: each expert's capacity is
+        then the whole sequence."""
+        torch = self.torch
+        from repro_torch.models import api, moe
+        from repro_torch.models.transformer import unit_pattern
+        from repro_torch.optim._tree import map_params
+
+        n = MODEL_CHECK_S + MODEL_CHECK_STEPS
+        for arch in ["qwen3-0.6b", *MODEL_ZOO]:
+            full_cfg = self.configs.get_config(arch)
+            cfg = dataclasses.replace(full_cfg, n_layers=len(unit_pattern(full_cfg)),
+                                      dtype="float32")
+            params = api.init(21, cfg, DEVICE)
+            batch = api.synth_batch(22, cfg, "train", 2, n, DEVICE)
+            del batch["labels"]
+            with torch.inference_mode(), self.recorded_routes() as routes:
+                full = api.forward(params, batch, cfg)
+                again = api.forward(params, batch, cfg)
+            check(self.same_bits(again, full), f"{arch}: a rerun of forward changed bits")
+            routes = routes[:len(routes) // 2]                 # the first forward's
+            serve_cfg = cfg
+            if cfg.n_experts:
+                cap = moe.capacity(cfg, n)
+                drops = sum(int((t == cfg.n_experts * cap).sum()) for t in routes[1::2])
+                log(f"[model] {arch}: at the published capacity factor {cfg.capacity_factor} "
+                    f"(capacity {cap} for {n} tokens) forward dropped {drops} of "
+                    f"{2 * n * cfg.top_k} assignments")
+                serve_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            if arch in CARD_CPU_ARCHS:
+                cpu_params = map_params(lambda t: t.cpu(), params)
+                cpu_batch = {k: v.cpu() for k, v in batch.items()}
+                with torch.inference_mode(), self.recorded_routes() as cpu_routes:
+                    on_cpu = api.forward(cpu_params, cpu_batch, cfg)
+                err = self.rel_err(full.cpu(), on_cpu)
+                same = len(routes) == len(cpu_routes) and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(routes, cpu_routes))
+                log(f"[model] {arch} card vs the port's CPU run, same weights and tokens: "
+                    f"logits {err:.3e} (limit {CARD_CPU_TOL}); MoE expert ids and slots "
+                    f"(kept and dropped) equal: {same} ({len(cpu_routes)} tensors)")
+                check(err <= CARD_CPU_TOL, f"{arch}: card vs CPU {err:.3e}")
+                check(same, f"{arch}: the card's MoE routes differ from the CPU's")
+                del cpu_params
+            if serve_cfg is not cfg:
+                with torch.inference_mode():
+                    full = api.forward(params, batch, serve_cfg)
+            errs = self.serve_errors(serve_cfg, params, batch, full, MODEL_CHECK_S - 1)
+            s = MODEL_CHECK_S
+            log(f"[model] {arch} one unit ({cfg.n_layers} layers) f32 at full widths, batch 2"
+                + (f", capacity factor {serve_cfg.capacity_factor:g}" if cfg.n_experts else "")
+                + f": prefill(t[:{s - 1}]) vs forward {errs[0]:.3e}, decode(t[{s - 1}]) "
+                f"{errs[1]:.3e} (limit {SERVE_TOL}), {MODEL_CHECK_STEPS} more steps max "
+                f"{max(errs[2:]):.3e} (limit {MULTI_TOL}), relative to max|logit|; "
+                f"forward rerun bit for bit")
+            check(max(errs[:2]) <= SERVE_TOL and max(errs[2:]) <= MULTI_TOL,
+                  f"{arch}: serving vs forward {errs}")
+            if arch == "mixtral-8x22b":
+                self.ring_check(dataclasses.replace(serve_cfg, sliding_window=RING_WINDOW),
+                                params)
+            del params, full, again
+            torch.cuda.empty_cache()
+
+    def serve_errors(self, cfg, params, batch, full, start: int) -> list[float]:
+        """Prefill the first ``start`` tokens, then decode each later one:
+        the prefill's and every step's logits against ``full`` (forward of
+        the whole batch), relative to max|logit|."""
+        torch = self.torch
+        from repro_torch.models import api
+
+        n = batch["tokens"].shape[1]
+        pre = {k: v[..., :start] for k, v in batch.items()}
+        with torch.inference_mode():
+            lp, cache = api.prefill(params, pre, cfg, s_max=n)
+            errs = [self.rel_err(lp, full[:, start - 1])]
+            for t in range(start, n):
+                ld, cache = api.decode_step(params, cache, batch["tokens"][:, t:t + 1], cfg)
+                errs.append(self.rel_err(ld, full[:, t]))
+        return errs
+
+    def ring_check(self, cfg, params) -> None:
+        """mixtral's widths with a ``RING_WINDOW``-slot ring: prefill past the
+        window (the ring rolled into place), decode on past it again."""
+        torch = self.torch
+        from repro_torch.models import api
+
+        batch = api.synth_batch(23, cfg, "prefill", 2, RING_END, DEVICE)
+        with torch.inference_mode():
+            full = api.forward(params, batch, cfg)
+        errs = self.serve_errors(cfg, params, batch, full, RING_PREFILL)
+        log(f"[model] ring buffer, mixtral-8x22b widths, window {RING_WINDOW}: prefill "
+            f"{RING_PREFILL} tokens, decode to {RING_END}: prefill {errs[0]:.3e}, decode max "
+            f"{max(errs[1:]):.3e} (limit {MULTI_TOL}) against forward")
+        check(max(errs) <= MULTI_TOL, f"ring buffer vs forward {max(errs):.3e}")
 
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over

@@ -1,19 +1,29 @@
-"""Serving launcher: QR-as-a-service over the port (the ``--mode qr`` route of
-the reference's :mod:`repro.launch.serve`, with its flags and output lines).
+"""Serving launcher — the port of the reference's :mod:`repro.launch.serve`:
+two serving paths behind one entry point, with the reference's flags and
+output lines, on the card unless ``--device`` names another.
 
-Shape-bucketed continuous batching over the batched fault-tolerant
-pipeline, on the card unless ``--device`` names another::
+Model serving (batched prefill + greedy decode loop; ``--smoke``, the
+default, at the reduced config, ``--full`` at the published one)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --device cpu
+
+The dense, MoE and VLM architectures serve; ``ssm``, ``hybrid`` and
+``encdec`` wait for ROADMAP A.12b.
+
+QR-as-a-service (shape-bucketed continuous batching over the batched
+fault-tolerant pipeline)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode qr \\
       --requests 24 --fault-period 3
   PYTHONPATH=src python -m repro_torch.launch.serve --mode qr --device cpu
-
-``--mode model`` (batched prefill and decode of a model) waits for the
-port's model zoo (ROADMAP A.12).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -32,6 +42,76 @@ def synthetic_stream(buckets, n_requests: int, seed: int) -> list[np.ndarray]:
         m = int(rng.integers(n, spec.m_pad - (spec.n_pad - n) + 1))
         mats.append(rng.standard_normal((m, n)).astype(np.float32))
     return mats
+
+
+@dataclasses.dataclass
+class ModelRun:
+    """One model serving run: the greedy ids (B, gen), the last step's
+    logits (B, V) and the host-clock times of the prefill and of the whole
+    decode loop, each ending in a synchronize."""
+
+    arch: str
+    ids: "torch.Tensor"
+    logits: "torch.Tensor"
+    t_prefill: float
+    t_decode: float
+
+
+def generate(params, batch, cfg, gen: int, s_max: int) -> ModelRun:
+    """Prefill ``batch`` into caches of ``s_max`` positions, then decode
+    ``gen`` greedy tokens one step at a time (the reference launcher's
+    loop), without autograd."""
+    import torch
+
+    from repro_torch.models import api
+
+    device = batch["tokens"].device
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, batch, cfg, s_max=s_max)
+        sync()
+        t_prefill = time.perf_counter() - t0
+
+        toks = []
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            toks.append(tok)
+            logits, cache = api.decode_step(params, cache, tok, cfg)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        sync()
+        t_decode = time.perf_counter() - t0
+    return ModelRun(cfg.name, torch.cat(toks, dim=1), logits, t_prefill, t_decode)
+
+
+def run_model(args) -> ModelRun:
+    """``--mode model``: the architecture's config (reduced unless
+    ``--full``), parameters drawn from seed 0 and a prefill batch drawn from
+    seed 0 on the device, served by :func:`generate`."""
+    from repro_torch.collective.comm import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    params = api.init(0, cfg, device)
+    batch = api.synth_batch(0, cfg, "prefill", args.batch, args.prompt_len, device)
+    return generate(params, batch, cfg, args.gen, s_max=args.prompt_len + args.gen)
+
+
+def _serve_model(args) -> None:
+    run = run_model(args)
+    print(f"arch={run.arch} prefill({args.batch}x{args.prompt_len})="
+          f"{run.t_prefill*1e3:.1f}ms decode {args.gen} steps="
+          f"{run.t_decode*1e3:.1f}ms ({run.t_decode/args.gen*1e3:.2f} ms/tok)")
+    print("generated ids[0]:", run.ids[0].tolist())
 
 
 def _serve_qr(args) -> None:
@@ -78,9 +158,16 @@ def _serve_qr(args) -> None:
           f"p99={np.percentile(lat_us, 99) / 1e3:.1f}ms")
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("model", "qr"), default="model")
+    # model serving
+    ap.add_argument("--arch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
     # QR serving
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--fault-period", type=int, default=3,
@@ -90,15 +177,17 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     if args.mode == "qr":
         _serve_qr(args)
     else:
-        raise NotImplementedError(
-            "--mode model serves a model, which waits for the port's model zoo "
-            "(ROADMAP A.12); use --mode qr"
-        )
+        if not args.arch:
+            raise SystemExit("--arch is required for --mode model")
+        _serve_model(args)
 
 
 if __name__ == "__main__":

@@ -446,7 +446,13 @@ def test_qr_launcher_prints_the_reference_counts():
 
 
 def test_qr_launcher_model_mode_waits_for_the_model_zoo():
+    """``--mode model`` serves the dense, MoE and VLM families (held to the
+    reference in test_torch_model_serving.py); it asks for ``--arch`` as the
+    reference's does, and the SSM, hybrid and enc-dec families wait for
+    ROADMAP A.12b."""
     from repro_torch.launch import serve as launcher
 
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(SystemExit, match="--arch is required"):
         launcher.main(["--mode", "model"])
+    with pytest.raises(NotImplementedError, match="A.12b"):
+        launcher.main(["--mode", "model", "--arch", "mamba2-2.7b", "--device", "cpu"])
