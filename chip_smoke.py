@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine paths, each driven with the launch counts set to 0 just before it and
+Ten paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -43,6 +43,13 @@ read just after:
   qwen2-moe-a2.7b, mixtral-8x22b (4 of 56 layers) and qwen2-vl-72b (8 of
   80) at full widths in bf16.  The models' attention is plain tensor code
   (the reference's reaches no ``pallas_call``); the launch counts stay 0.
+* **Training** (``repro_torch.runtime``): olmo-1b at its published config
+  through ``launch/train.py``'s path, 4 replicas under BLANK with the
+  gradient combine on ``ft_allreduce``; the three stock trainer fault
+  scenarios (REBUILD from disk and from the buddy store, SHRINK then
+  rejoin) and PowerSGD, OrthoSGD and the low-rank optimizer at its widths
+  cut to 2 layers.  The reference's trainer reaches no ``pallas_call``;
+  the launch counts stay 0.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
 one kernel launch for every rank.
@@ -121,6 +128,18 @@ Phases (each raises on failure; the script then exits non-zero):
    over 8 more steps), a forward rerun bit for bit, the ring buffer decoded
    past its window, and qwen3-0.6b and qwen2-moe-a2.7b against the port's
    CPU run (logits within 1e-4, MoE expert ids and slots equal);
+11. (run before 9) train: olmo-1b at its published config (16 layers,
+   bf16, remat) through the launcher's ``run`` with ``TRAIN_LAUNCH`` (4
+   replicas x 2 x 2048 tokens, BLANK, replica 1 down for steps 2-3): losses
+   finite, the ``ft_allreduce`` line, 1 failure, 1 recovery, 2 masked
+   steps, one ``train_step`` trace and 6 dispatches, the warm step time,
+   tokens/s and peak allocation (under 70 GB); the three stock trainer
+   scenarios at full widths cut to 2 layers, 2048-token rows (their fault
+   stats, final width, last step, traces and dispatches 1/12, 1/9, 2/8),
+   one warm step of that size profiled; PowerSGD, OrthoSGD and low-rank 2
+   steps each under BLANK, losses finite; one layer in f32 trained 3 steps
+   on the card and on the CPU from the same weights (losses within 1e-6
+   relative, the parameters within 1e-3 of max|param|);
 9. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound (``gram``
@@ -289,6 +308,41 @@ RING_WINDOW, RING_PREFILL, RING_END = 64, 80, 104
 # product) or a bf16 one lands past this bound.
 CARD_CPU_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b")
 CARD_CPU_TOL = 1e-4
+# Phase 11, training (repro_torch.runtime.trainer): olmo-1b at its published
+# config (16 layers, d_model 2048, d_ff 8192, vocab 50 304, bf16, remat)
+# through launch/train.py's path, 4 replicas simulated on the card, 2
+# sequences of 2048 tokens each, BLANK with replica 1 failed over steps 2-3
+# (the gradient combine on ft_allreduce over the 4 replicas).  The step's
+# peak allocation must stay under TRAIN_PEAK_LIMIT: the peak is in the fast
+# butterfly, which holds its input, the running sum, the received operand,
+# both ordered operands and the new sum of the 4 stacked bf16 gradient
+# trees (9.4 GB each at 16 layers) beside the weights and f32 moments.
+TRAIN_LAUNCH = ["--arch", "olmo-1b", "--full", "--mesh", "4x1", "--seq-len", "2048",
+                "--global-batch", "8", "--on-failure", "blank", "--fail", "2:1",
+                "--recover", "4:1", "--steps", "6"]
+TRAIN_PEAK_LIMIT = 70e9
+# The stock trainer scenarios, the other optimizers and the step profile at
+# olmo-1b's widths cut to 2 layers (2.37 GB of bf16 weights and f32 moments
+# a disk checkpoint), 2048-token rows; the expected train_step counts.
+TRAIN_CUT_LAYERS = 2
+TRAIN_SEQ_LEN = 2048
+TRAIN_COUNTS = {"fail_during_rebuild": (1, 12), "buddy_pair_wipe": (1, 9),
+                "shrink_then_rebuild": (2, 8)}
+# The card against the port's CPU run: one olmo-1b layer at full widths in
+# float32 (TF32 off), 4 replicas, 8 rows of 64 tokens, AdamW, 3 steps under
+# BLANK with replica 1 failed at step 1, from the same weights.  Limits: the
+# losses relative (ten times the 9.0e-8 read on an H100); the parameters'
+# largest difference relative to max|param|, about four times the 2.3e-4
+# read on an H100 (2.7e-5 absolute, 0.09·lr).  That reading is past the
+# reference's optimizer tolerance (2e-4, tests/test_optim.py): AdamW steps
+# each weight by lr·m̂/(√v̂ + eps), a ratio of order 1 whatever the
+# gradient's size, so a gradient the two summation orders round apart moves
+# its weight apart by that part of lr.  The elements furthest apart are not
+# near eps (1e-8): √v̂ there reads 1.3e-7 to 2.4e-4, and the last step's
+# ratio agrees there within 0.03, so they parted in the earlier steps.
+TRAIN_CPU_SEQ = 64
+TRAIN_CPU_LOSS_TOL = 1e-6
+TRAIN_CPU_PARAM_TOL = 1e-3
 OPTIM_REPLICAS = 8
 PSGD_RANK = 8
 DATA_BATCH = 64
@@ -346,6 +400,7 @@ def main() -> int:
     smoke.serving_path()
     smoke.optim_path()
     smoke.model_path()
+    smoke.train_path()
     smoke.timings()
     smoke.blocked_timings()
     smoke.combine_gram_timing()
@@ -1367,6 +1422,8 @@ class Smoke:
         guarantees = ("values_match", "survived", "corruption_detected",
                       "honest_degradation", "wire_matches_plan", "survivors_match_plan")
         for sc in get_scenarios():
+            if sc.kind == "trainer":          # phase 11 runs them at olmo-1b's widths
+                continue
             metrics = run_scenario(sc, seed=0, device=DEVICE)
             for key in guarantees:
                 if key in metrics:
@@ -2357,6 +2414,249 @@ class Smoke:
             f"{RING_PREFILL} tokens, decode to {RING_END}: prefill {errs[0]:.3e}, decode max "
             f"{max(errs[1:]):.3e} (limit {MULTI_TOL}) against forward")
         check(max(errs) <= MULTI_TOL, f"ring buffer vs forward {max(errs):.3e}")
+
+    # -- phase 11: training ---------------------------------------------------
+
+    def train_path(self) -> None:
+        """The fault-tolerant trainer on the card (``repro_torch.runtime``
+        through ``launch/train.py``'s path), with the launch counts read
+        around the phase: no port kernel runs on this path.  bf16 products
+        accumulate in f32 here, as the reference's do."""
+        import shutil
+
+        torch = self.torch
+        counts = self.dispatch.launches
+        phase_t0 = time.perf_counter()
+        matmul = torch.backends.cuda.matmul
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        root = Path(__file__).resolve().parent / "build" / "smoke_train"
+        shutil.rmtree(root, ignore_errors=True)
+        # the full-depth step needs most of the card: drop the cached
+        # programs of the earlier phases (the timings capture theirs again)
+        from repro_torch import replay
+
+        replay.clear()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[train] at the phase's start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated by earlier phases, {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+        counts.reset()
+        try:
+            self.train_launcher(root / "launch")
+            self.train_scenarios(root)
+            self.train_optimizers(root)
+            self.train_card_vs_cpu(root / "cpu")
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.synchronize()
+        self.launches["train"] = counts.as_dict()
+        log(f"[train] launches in this phase: {self.launches['train']}")
+        check(not any(self.launches["train"].values()),
+              f"the training path launched a port kernel: {self.launches['train']}")
+        log(f"[train] phase took {time.perf_counter() - phase_t0:.1f} s")
+
+    def train_counts(self, label: str, stats, traces: int, dispatches: int) -> None:
+        got = (dict(stats.traces), dict(stats.dispatches))
+        want = ({"train_step": traces}, {"train_step": dispatches})
+        log(f"[train] {label}: traces {got[0]}, dispatches {got[1]}")
+        check(got == want, f"{label}: traces and dispatches {got}, expected {want}")
+
+    def train_cut(self, n_layers: int):
+        cfg = self.configs.get_config(OLMO_ARCH)
+        return dataclasses.replace(cfg, n_layers=n_layers)
+
+    def train_launcher(self, ckpt_dir: Path) -> None:
+        """olmo-1b at its published config through ``run``, the body of
+        ``python -m repro_torch.launch.train`` with ``TRAIN_LAUNCH``: BLANK
+        over 4 replicas, the failed replica masked for two steps."""
+        torch = self.torch
+        from repro_torch.launch import train
+        from repro_torch.models import api
+        from repro_torch.optim._tree import leaves
+
+        import numpy as np
+
+        args = train.parse_args(TRAIN_LAUNCH + ["--device", DEVICE, "--ckpt-dir", str(ckpt_dir)])
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with self.dispatch.track_dispatch() as stats:
+            tr = train.run(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        cfg = tr.model_cfg
+        losses = [m["loss"] for m in tr.metrics_log]
+        walls = [m["wall"] for m in tr.metrics_log]
+        warm = statistics.median(walls[1:])
+        tokens = args.global_batch * args.seq_len
+        n_params = sum(t.numel() for t in leaves(api.param_specs(cfg)))
+        log(f"[train] olmo-1b ({cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params / 1e9:.3f} B "
+            f"parameters), {' '.join(TRAIN_LAUNCH)}")
+        log(f"[train] olmo-1b launcher run on {self.card_name}: {len(walls)} steps in "
+            f"{run_s:.3f} s (weights drawn on the card included); step walls "
+            f"{[round(w, 4) for w in walls]} s; warm step (median of steps 1-{len(walls) - 1}) "
+            f"{warm * 1e3:.3f} ms, {tokens / warm:.0f} tokens/s ({tokens} tokens a step over "
+            f"{tr.n_replicas} replicas); peak allocation {peak / 1e9:.2f} GB above the "
+            f"process's other allocations (limit {TRAIN_PEAK_LIMIT / 1e9:.0f} GB)")
+        log(f"[train] olmo-1b losses {losses}; fault stats {tr.fault_stats}")
+        check(all(np.isfinite(losses)) and len(losses) == 6, f"olmo-1b losses {losses}")
+        check("gradient all-reduce: ft_allreduce over 4 replicas" in tr.events_log,
+              f"olmo-1b: no ft_allreduce line in {tr.events_log}")
+        fs = tr.fault_stats
+        check((fs["failures"], fs["recoveries"], fs["masked_steps"]) == (1, 1, 2),
+              f"olmo-1b fault stats {fs}")
+        check(peak < TRAIN_PEAK_LIMIT, f"olmo-1b peak allocation {peak / 1e9:.2f} GB")
+        self.train_counts("olmo-1b launcher run", stats, 1, 6)
+        del tr
+        torch.cuda.empty_cache()
+
+    def train_scenarios(self, root: Path) -> None:
+        """The three stock trainer scenarios at olmo-1b's widths cut to
+        ``TRAIN_CUT_LAYERS`` layers, through ``trainer_scenario_run`` (disk
+        checkpoints under ``root``): the expected fault stats, final width,
+        last step and train_step counts; then one warm step of a BLANK
+        trainer at that size profiled."""
+        torch = self.torch
+        from repro_torch.bench import scenarios
+
+        cfg = self.train_cut(TRAIN_CUT_LAYERS)
+        for sc in scenarios.get_scenarios():
+            if sc.kind != "trainer":
+                continue
+            t0 = time.perf_counter()
+            with self.dispatch.track_dispatch() as stats:
+                tr = scenarios.trainer_scenario_run(sc, str(root / sc.name), device=DEVICE,
+                                                    cfg=cfg, seq_len=TRAIN_SEQ_LEN)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            metrics = {k: m.value for k, m in scenarios.trainer_scenario_metrics(sc, tr).items()}
+            walls = [m["wall"] for m in tr.metrics_log]
+            log(f"[train] scenario {sc.name} ({cfg.n_layers} layers at full widths, "
+                f"{sc.data_width} replicas, {2 * sc.data_width} x {TRAIN_SEQ_LEN} tokens) on "
+                f"{self.card_name}: {took:.3f} s, {len(walls)} steps, median step "
+                f"{statistics.median(walls) * 1e3:.3f} ms; metrics {metrics}")
+            log(f"[train] scenario {sc.name} events: {tr.events_log}")
+            check(metrics["loss_finite"] and metrics["completed_final_step"] == sc.steps - 1
+                  and metrics["final_replicas"] == sc.data_width,
+                  f"scenario {sc.name}: {metrics}")
+            self.train_counts(f"scenario {sc.name}", stats, *TRAIN_COUNTS[sc.name])
+            del tr
+        self.train_profile(cfg, root / "profile")
+
+    def train_profile(self, cfg, ckpt_dir: Path) -> None:
+        """One warm AdamW step under BLANK (4 replicas, the gradient combine
+        on the butterfly) at the scenarios' size, under the profiler."""
+        torch = self.torch
+        from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+        from repro_torch.runtime.elastic import ReplicaMesh
+        from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+        tr = Trainer(cfg, TrainerConfig(steps=4, ckpt_every=0, ckpt_dir=str(ckpt_dir)),
+                     ReplicaMesh.of((4, 1)),
+                     DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ_LEN, global_batch=8),
+                     device=DEVICE)
+        p, o = tr.init_state()
+        batch = tr._device_batch(SyntheticCorpus(tr.data_cfg, DEVICE).host_batch(0))
+        self.profile(f"olmo-1b train step ({cfg.n_layers} layers at full widths, 4 replicas, "
+                     f"8 x {TRAIN_SEQ_LEN} tokens, BLANK, AdamW)",
+                     lambda: tr.step_fn(p, o, batch))
+        del tr, p, o, batch
+        torch.cuda.empty_cache()
+
+    def train_optimizers(self, root: Path) -> None:
+        """PowerSGD, OrthoSGD and the low-rank optimizer, 2 steps each over
+        4 replicas under BLANK with replica 2 failed at step 1, at the
+        scenarios' size."""
+        torch = self.torch
+        from repro_torch.bench import scenarios
+        from repro_torch.runtime.trainer import FaultEvent
+
+        cfg = self.train_cut(TRAIN_CUT_LAYERS)
+        for opt in ("powersgd", "orthosgd", "lowrank"):
+            sc = scenarios.TrainerScenario(
+                name=f"blank_{opt}", on_failure="blank", optimizer=opt, steps=2, ckpt_every=0,
+                events=(FaultEvent(step=1, kind="fail", replica=2),),
+                expect={"failures": 1, "masked_steps": 1})
+            t0 = time.perf_counter()
+            with self.dispatch.track_dispatch() as stats:
+                tr = scenarios.trainer_scenario_run(sc, str(root / sc.name), device=DEVICE,
+                                                    cfg=cfg, seq_len=TRAIN_SEQ_LEN)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            metrics = {k: m.value for k, m in scenarios.trainer_scenario_metrics(sc, tr).items()}
+            losses = [m["loss"] for m in tr.metrics_log]
+            log(f"[train] {opt} ({cfg.n_layers} layers at full widths, 4 replicas, BLANK) on "
+                f"{self.card_name}: {took:.3f} s for 2 steps, step walls "
+                f"{[round(m['wall'], 4) for m in tr.metrics_log]} s, losses {losses}")
+            check(metrics["loss_finite"] and "gradient all-reduce: ft_allreduce over 4 replicas"
+                  in tr.events_log, f"{opt}: {metrics}, {tr.events_log}")
+            self.train_counts(opt, stats, 1, 2)
+            del tr
+        torch.cuda.empty_cache()
+
+    def train_card_vs_cpu(self, ckpt_dir: Path) -> None:
+        """One olmo-1b layer at full widths in float32, trained 3 steps
+        under BLANK on the card and on the CPU from the same weights: the
+        losses and the final parameters within the limits."""
+        torch = self.torch
+        from repro_torch.data.pipeline import DataConfig
+        from repro_torch.models import api
+        from repro_torch.optim import adamw
+        from repro_torch.optim._tree import leaves, map_params
+        from repro_torch.runtime.elastic import ReplicaMesh
+        from repro_torch.runtime.trainer import FaultEvent, Trainer, TrainerConfig
+
+        cfg = dataclasses.replace(self.train_cut(1), dtype="float32")
+        weights = api.init(31, cfg, "cpu")
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            tr = Trainer(cfg, TrainerConfig(steps=3, ckpt_every=0, log_every=10**9,
+                                            ckpt_dir=str(ckpt_dir / device)),
+                         ReplicaMesh.of((4, 1)),
+                         DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=8),
+                         device=device)
+            p = map_params(lambda t: t.to(tr.device, copy=True), weights)
+            t0 = time.perf_counter()
+            p, o = tr.run(p, adamw.init(p), fault_schedule=(FaultEvent(1, "fail", 1),))
+            took = time.perf_counter() - t0
+            runs[device] = ([m["loss"] for m in tr.metrics_log], [t.cpu() for t in leaves(p)],
+                            [t.cpu() for t in leaves(o["m"])], [t.cpu() for t in leaves(o["v"])],
+                            tr.fault_stats["masked_steps"], took, tr.opt_cfg)
+        (gl, gp, gmom, gv, gm, gt, _), (wl, wp, wmom, wv, wm, wt, ocfg) = runs[DEVICE], runs["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, wl))
+        param_err = max(self.rel_err(a, b) for a, b in zip(gp, wp))
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(gp, wp)])
+        # AdamW's direction m̂/(√v̂ + eps) after the 3 steps, and its √v̂, at
+        # the elements the two runs moved furthest apart
+        def adam(ms, vs):
+            m = torch.cat([t.flatten() for t in ms]) / (1 - ocfg.b1 ** 3)
+            root_v = (torch.cat([t.flatten() for t in vs]) / (1 - ocfg.b2 ** 3)).sqrt()
+            return m / (root_v + ocfg.eps), root_v
+
+        (ratio, root_v), (ratio_card, root_v_card) = adam(wmom, wv), adam(gmom, gv)
+        top = diff.topk(8).indices
+        log(f"[train] card vs the port's CPU run, one olmo-1b layer at full widths in f32, 4 "
+            f"replicas, 8 x {TRAIN_CPU_SEQ} tokens, AdamW, BLANK with replica 1 failed at step 1: "
+            f"losses {gl} (card) {wl} (CPU), max relative difference {loss_err:.3e} (limit "
+            f"{TRAIN_CPU_LOSS_TOL}); final parameters: max |difference| {float(diff.max()):.3e}, "
+            f"{param_err:.3e} of max|param| (limit {TRAIN_CPU_PARAM_TOL}), "
+            f"{int((diff > 1e-6).sum())} of {diff.numel()} elements apart by more than 1e-6; "
+            f"masked steps {gm}, {wm}; {gt:.3f} s on the card, {wt:.3f} s on the CPU")
+        log(f"[train] card vs CPU: the 8 elements furthest apart: differences "
+            f"{[f'{float(d):.3e}' for d in diff[top]]}; AdamW's m̂/(√v̂ + eps) there (CPU) "
+            f"{[f'{float(r):.4f}' for r in ratio[top]]}, (card) "
+            f"{[f'{float(r):.4f}' for r in ratio_card[top]]}; √v̂ there (CPU) "
+            f"{[f'{float(r):.3e}' for r in root_v[top]]}, (card) "
+            f"{[f'{float(r):.3e}' for r in root_v_card[top]]}, eps {ocfg.eps}; elements with "
+            f"√v̂ < 10·eps (CPU): {int((root_v < 10 * ocfg.eps).sum())}, of those apart by more "
+            f"than 1e-6: {int(((root_v < 10 * ocfg.eps) & (diff > 1e-6)).sum())}")
+        check(gm == wm == 2, f"masked steps {gm}, {wm}")
+        check(loss_err <= TRAIN_CPU_LOSS_TOL, f"card vs CPU losses {loss_err:.3e}")
+        check(param_err <= TRAIN_CPU_PARAM_TOL, f"card vs CPU parameters {param_err:.3e} of "
+              f"max|param| (limit {TRAIN_CPU_PARAM_TOL})")
 
     def profile(self, label: str, fn) -> None:
         """Where one warm call spends device time: ``torch.profiler`` over

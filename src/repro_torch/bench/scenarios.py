@@ -18,17 +18,30 @@ seed:
   against the variant's guarantee, with the one-trailing-sweep-per-panel
   claim counted through :mod:`repro_torch.kernels.traffic`.
 
-The reference's trainer scenarios wait for the port's trainer (ROADMAP
-A.13); the bench registry and schema wait for A.15, so :class:`Metric`
+* :class:`TrainerScenario` — a :class:`~repro_torch.runtime.trainer.
+  FaultEvent` schedule driven through a small
+  :class:`~repro_torch.runtime.trainer.Trainer` on a ``(data, model)``
+  replica mesh, exercising the SHRINK / REBUILD / BLANK semantics end to
+  end; assertions read the trainer's ``fault_stats`` counters.  The
+  replicas are simulated on one device, so a scenario needs no devices and
+  the reference's ``SkipCase`` branch (too few JAX devices) has no
+  counterpart.
+
+The bench registry and schema wait for ROADMAP A.15, so :class:`Metric`
 and :class:`BenchFailure` are kept here.  Runners take ``device`` (``None``
 means the GPU, as every entry point of the port).
 """
 from __future__ import annotations
 
 import dataclasses
+import shutil
+import tempfile
+from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.trainer import FaultEvent, Trainer, TrainerConfig
 
 __all__ = [
     "BenchFailure",
@@ -36,10 +49,14 @@ __all__ = [
     "CollectiveScenario",
     "Metric",
     "ReduceRound",
+    "TrainerScenario",
     "get_scenarios",
     "run_blocked_qr_scenario",
     "run_collective_scenario",
     "run_scenario",
+    "run_trainer_scenario",
+    "trainer_scenario_metrics",
+    "trainer_scenario_run",
 ]
 
 
@@ -87,6 +104,25 @@ class CollectiveScenario:
     description: str = ""
 
     kind = "collective"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerScenario:
+    name: str
+    on_failure: str                      # blank | shrink | rebuild
+    events: tuple = ()                   # FaultEvent schedule
+    data_width: int = 4
+    model_width: int = 1
+    steps: int = 8
+    ckpt_every: int = 3
+    buddy_levels: int = 1
+    arch: str = "olmo-1b"                # any configs/ registry name
+    optimizer: str = "adamw"             # adamw | powersgd | orthosgd | lowrank
+    n_layers: int = 2
+    expect: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    description: str = ""
+
+    kind = "trainer"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,14 +323,86 @@ def run_blocked_qr_scenario(sc: BlockedQRScenario, seed: int = 0, *, device=None
     }
 
 
+def trainer_scenario_run(sc: TrainerScenario, ckpt_dir: str | None = None, *, device=None,
+                         cfg=None, seq_len: int = 32, state=None):
+    """Drive a small Trainer through the scenario's event schedule and
+    return it (its ``fault_stats``, ``events_log``, ``metrics_log``).
+
+    ``cfg`` replaces the scenario's ``smoke(n_layers=...)`` config of
+    ``sc.arch`` (e.g. the published widths at that depth), ``seq_len`` the
+    reference's 32-token rows, and ``state`` — ``(params, opt_state)`` —
+    the trainer's own ``init_state()``.  Checkpoints go under ``ckpt_dir``
+    or a temporary directory that is removed after the run.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.elastic import ReplicaMesh
+
+    cfg = cfg or get_config(sc.arch).smoke(n_layers=sc.n_layers)
+    mesh = ReplicaMesh.of((sc.data_width, sc.model_width), ("data", "model"))
+    own_dir = ckpt_dir is None
+    ckpt_dir = ckpt_dir or tempfile.mkdtemp(prefix=f"bench_{sc.name}_")
+    tcfg = TrainerConfig(
+        steps=sc.steps, log_every=10**9, ckpt_every=sc.ckpt_every,
+        ckpt_dir=ckpt_dir, optimizer=sc.optimizer,
+        on_failure=sc.on_failure, buddy_levels=sc.buddy_levels, seed=0,
+    )
+    dc = DataConfig(
+        vocab=cfg.vocab, seq_len=seq_len, global_batch=2 * sc.data_width,
+        family=cfg.family,
+        enc_frames=cfg.enc_frames if cfg.family == "encdec" else 0,
+        d_model=cfg.d_model,
+    )
+    try:
+        tr = Trainer(cfg, tcfg, mesh, dc, device=_device(device))
+        tr.run(*(state or ()), fault_schedule=tuple(sc.events))
+    finally:
+        if own_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return tr
+
+
+def run_trainer_scenario(sc: TrainerScenario, ckpt_dir: str | None = None, *, device=None,
+                         **kw) -> dict:
+    """Drive a small Trainer through the event schedule
+    (:func:`trainer_scenario_run`, which takes ``kw``); the metric dict
+    (:func:`trainer_scenario_metrics`).  Raises :class:`BenchFailure` when a
+    fault stat misses the scenario's expectation; anything else (I/O
+    errors included) propagates."""
+    return trainer_scenario_metrics(sc, trainer_scenario_run(sc, ckpt_dir, device=device, **kw))
+
+
+def trainer_scenario_metrics(sc: TrainerScenario, tr) -> dict:
+    """The metric dict of the trainer ``tr`` that ran ``sc``; raises
+    :class:`BenchFailure` when a fault stat misses its expectation."""
+    losses = [m["loss"] for m in tr.metrics_log]
+    metrics: dict[str, Metric] = {
+        "completed_final_step": Metric(int(tr.metrics_log[-1]["step"])),
+        "loss_finite": Metric(bool(np.isfinite(losses).all())),
+        "final_replicas": Metric(int(tr.n_replicas)),
+    }
+    for key, want in sc.expect.items():
+        got = int(tr.fault_stats[key])
+        metrics[f"stat_{key}"] = Metric(got)
+        if got != want:
+            raise BenchFailure(
+                f"scenario {sc.name}: fault_stats[{key!r}] = {got}, "
+                f"schedule expects {want} (events: "
+                + "; ".join(tr.events_log[-6:]) + ")"
+            )
+    return metrics
+
+
 def run_scenario(sc, **kw) -> dict:
     if sc.kind == "collective":
         return run_collective_scenario(sc, **kw)
-    return run_blocked_qr_scenario(sc, **kw)
+    if sc.kind == "blocked":
+        return run_blocked_qr_scenario(sc, **kw)
+    return run_trainer_scenario(sc, **kw)
 
 
 # ---------------------------------------------------------------------------
-# The stock sweep (the reference's, without its trainer scenarios)
+# The stock sweep (the reference's, in its order)
 # ---------------------------------------------------------------------------
 
 SCENARIOS = (
@@ -359,6 +467,33 @@ SCENARIOS = (
                     "all-invalid, no garbage); 2 deaths decode fine "
                     "(round 1)",
     ),
+    # Fail during rebuild: disk-rollback REBUILD (no buddy store), and a
+    # second replica fails while the first rollback is still replaying.
+    TrainerScenario(
+        name="fail_during_rebuild", on_failure="rebuild",
+        buddy_levels=0, steps=10, ckpt_every=3,
+        events=(
+            FaultEvent(step=5, kind="fail", replica=0),
+            FaultEvent(step=5, kind="fail", replica=1),
+        ),
+        expect={"failures": 2, "rollbacks": 2},
+        description="replica 0 dies at step 5 → rollback to ckpt 3; "
+                    "replica 1 dies when the replay re-reaches step 5",
+    ),
+    # Buddy-pair wipe: both members of an XOR buddy pair die in the same
+    # step — the first recovers diskless from its buddy, the second finds
+    # its only replica gone and falls back to the disk rollback.
+    TrainerScenario(
+        name="buddy_pair_wipe", on_failure="rebuild",
+        buddy_levels=1, steps=8, ckpt_every=3,
+        events=(
+            FaultEvent(step=5, kind="fail", replica=0),
+            FaultEvent(step=5, kind="fail", replica=1),
+        ),
+        expect={"failures": 2, "buddy_restores": 1, "rollbacks": 1},
+        description="replicas 0 and 1 (level-1 buddies) die together; "
+                    "first recovers diskless, second needs the disk",
+    ),
     # Blocked QR, deaths during panel 1's reduction, rerouted by Replace.
     BlockedQRScenario(
         name="panel_death_midsweep", p=8, variant="replace",
@@ -384,9 +519,22 @@ SCENARIOS = (
         description="one death per panel across panels 0-2, each within "
                     "the per-step budget; selfhealing keeps all 8 valid",
     ),
+    # SHRINK then REBUILD: elastic round trip through the mesh layer.
+    TrainerScenario(
+        name="shrink_then_rebuild", on_failure="shrink",
+        steps=8, ckpt_every=0,
+        events=(
+            FaultEvent(step=3, kind="fail", replica=1),
+            FaultEvent(step=6, kind="rejoin"),
+        ),
+        expect={"failures": 1, "shrinks": 1, "rejoins": 1},
+        description="lose a replica at step 3 (mesh 4→2), replacement "
+                    "hardware rejoins at step 6 (mesh 2→4)",
+    ),
 )
 
 
 def get_scenarios() -> tuple:
-    """The stock sweep: the reference's collective and blocked scenarios."""
+    """The stock sweep: the reference's collective, trainer and blocked
+    scenarios, in its order."""
     return SCENARIOS

@@ -23,10 +23,23 @@ __all__ = ["CheckpointManager", "flatten_tree", "unflatten_like"]
 
 
 def _to_host(x) -> np.ndarray:
-    """A host copy of a leaf: tensors on any device, numpy arrays, scalars."""
+    """A host copy of a leaf: tensors on any device, numpy arrays, scalars.
+    A bf16 tensor, which numpy cannot hold, becomes its 2-byte patterns as
+    ``|V2``: what the reference's ``np.savez`` of a bf16 array writes."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.dtype("V2"))
+        return x.numpy()
     return np.array(x)
+
+
+def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor on ``like``'s device; a ``|V2`` entry restored
+    into a bf16 leaf is read back as bf16 bit patterns."""
+    if like.dtype == torch.bfloat16 and arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(like.device)
+    return torch.from_numpy(arr).to(like.device)
 
 
 def flatten_tree(tree) -> dict[str, np.ndarray]:
@@ -66,7 +79,7 @@ def unflatten_like(template, flat: dict[str, np.ndarray]):
         arr = flat[path]
         if arr.shape != tuple(t.shape):
             raise ValueError(f"{path}: checkpoint shape {arr.shape}, template {tuple(t.shape)}")
-        return torch.from_numpy(arr).to(t.device) if isinstance(t, torch.Tensor) else arr
+        return _to_tensor(arr, t) if isinstance(t, torch.Tensor) else arr
 
     return walk(template, "")
 

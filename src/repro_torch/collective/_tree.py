@@ -33,12 +33,14 @@ def structure(tree):
 def unflatten(struct, flat):
     """The tree of :func:`structure` ``struct`` whose leaves, in
     :func:`leaves` order, are ``flat``."""
-    it = iter(flat)
+    return _build(struct, iter(flat))
 
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, subs = s
-        return kind(build(sub) for sub in subs)
 
-    return build(struct)
+def _build(s, it):
+    # a module-level recursion: a nested recursive closure would form a
+    # reference cycle holding ``flat`` (and its tensors) until the cyclic
+    # garbage collector runs
+    if s is None:
+        return next(it)
+    kind, subs = s
+    return kind(_build(sub, it) for sub in subs)

@@ -221,10 +221,14 @@ def _chol_upper(g: torch.Tensor) -> torch.Tensor:
     A matrix that is not positive definite gives a factor whose triangle is
     all NaN (zeros elsewhere), as the reference's ``jnp.linalg.cholesky``
     does: ``cholesky_ex`` reports it in ``info`` without a host sync, and
-    the factor is NaN-filled there.
+    the factor is NaN-filled there.  On the card, cuSOLVER can return
+    ``info`` 0 for a Gram that is indefinite by a few roundings and leave
+    the square root of the negative pivot, NaN, on the diagonal, so a NaN
+    pivot counts as a refusal too.
     """
     low, info = torch.linalg.cholesky_ex(g)
-    bad = (info != 0)[..., None, None]
+    pivots = torch.diagonal(low, dim1=-2, dim2=-1)
+    bad = ((info != 0) | torch.isnan(pivots).any(-1))[..., None, None]
     return torch.where(bad, torch.full_like(low, float("nan")).tril(), low).mT
 
 

@@ -1,6 +1,8 @@
 """Command-line launchers of the port (the reference's :mod:`repro.launch`).
 
-Only the QR-serving route of :mod:`repro_torch.launch.serve` is ported; the
-model-serving, training and dry-run launchers wait for the model zoo and the
-trainer (ROADMAP A.12, A.13, A.15).
+:mod:`repro_torch.launch.serve` serves QR requests and the transformer
+models; :mod:`repro_torch.launch.train` trains them with the
+fault-tolerant trainer and replays the stock trainer fault scenarios.  The
+dry-run launcher waits for ROADMAP A.15, the production meshes
+(``launch/mesh.py``, ``launch/shardings.py``) for A.3b.
 """

@@ -8,7 +8,7 @@ order.
 """
 from __future__ import annotations
 
-__all__ = ["leaves", "map_params", "split"]
+__all__ = ["leaves", "map_params", "split", "unflatten"]
 
 
 def map_params(fn, params, *rest):
@@ -38,3 +38,21 @@ def leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for sub in tree for leaf in leaves(sub)]
     return [] if tree is None else [tree]
+
+
+def unflatten(like, flat) -> object:
+    """The tree shaped as ``like`` whose tensors, in :func:`leaves` order,
+    are ``flat`` (``jax.tree.unflatten``); a None in ``like`` stays None."""
+    return _unflatten(like, iter(flat))
+
+
+def _unflatten(t, it):
+    # a module-level recursion: a nested recursive closure would form a
+    # reference cycle holding ``flat`` (and its tensors) until the cyclic
+    # garbage collector runs
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(v, it) for v in t)
+    return None if t is None else next(it)

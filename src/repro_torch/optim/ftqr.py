@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.collective import SimComm, ft_allreduce, make_plan
 
-from .lowrank import _cqr_round, gram_cqr2_q
+from .lowrank import _cqr_round, _gram, gram_cqr2_q
 
 __all__ = ["ft_cqr2_q"]
 
@@ -57,7 +57,7 @@ def ft_cqr2_q(a, shards: int, plan=None):
 
     def round_(x):
         xd = _distribute_rows(x, shards)
-        g_sum, _ = ft_allreduce(xd.mT @ xd, comm, op="gram_sum", plan=plan)
+        g_sum, _ = ft_allreduce(_gram(xd), comm, op="gram_sum", plan=plan)
         return _cqr_round(x, g_sum[slot])
 
     return round_(round_(a.to(torch.float32)))

@@ -66,6 +66,29 @@ def _gram_ridge(g):
     return g + (1e-6 * tr / n + 1e-30) * torch.eye(n, dtype=g.dtype, device=g.device)
 
 
+# The rows of one block of :func:`_gram`.
+GRAM_ROWS = 512
+
+
+def _gram(x):
+    """xᵀx (…, n, n) of ``x`` (…, m, n) in float32, as the sum of the Grams
+    of blocks of ``GRAM_ROWS`` rows (the last padded with zero rows, which
+    add nothing).  cuBLAS accumulates each entry of a one-product f32 Gram
+    in one chain along all m rows; at olmo-1b's tied embedding (50 304 rows)
+    that Gram's error, 7.7e-7, passes its least eigenvalue, 2.2e-8, and
+    CholeskyQR2 goes NaN, where summed blocks of 393 rows read 2.8e-9 on an
+    H100 (``tests/orthosgd_witness.py grams``).  At most ``GRAM_ROWS`` rows
+    it is the one product."""
+    m = x.shape[-2]
+    if m <= GRAM_ROWS:
+        return x.mT @ x
+    pad = (-m) % GRAM_ROWS
+    if pad:
+        x = torch.cat([x, x.new_zeros((*x.shape[:-2], pad, x.shape[-1]))], dim=-2)
+    xb = x.reshape(*x.shape[:-2], (m + pad) // GRAM_ROWS, GRAM_ROWS, x.shape[-1])
+    return (xb.mT @ xb).sum(-3)
+
+
 def _cqr_round(x, g):
     """One CholeskyQR round from the Gram ``g`` of ``x``: x·R⁻¹ with
     R = chol(ridge(g)), as the solve Rᵀ yᵀ = xᵀ.  A Gram that is not
@@ -78,7 +101,7 @@ def gram_cqr2_q(a):
     """CholeskyQR2 Q factor of ``a`` (…, m, n) in float32: two rounds for
     Householder-grade orthogonality."""
     def round_(x):
-        return _cqr_round(x, x.mT @ x)
+        return _cqr_round(x, _gram(x))
 
     return round_(round_(a.to(torch.float32)))
 

@@ -354,3 +354,20 @@ def test_slice_end_to_end_with_a_checkpoint_mid_run(tmp_path, monkeypatch):
         assert np.abs(g - w).max() <= SLICE_TOL * max(1.0, np.abs(w).max()), k
     assert np.abs(got_q.numpy() - np.asarray(want_q)).max() <= SLICE_TOL * max(
         1.0, np.abs(np.asarray(want_q)).max())
+
+
+def test_bf16_leaves_round_trip_in_the_reference_layout(tmp_path):
+    """A bf16 leaf (the trainer's bf16 parameters) is written as its 2-byte
+    patterns, ``|V2``, which is what the reference's ``np.savez`` writes
+    for a bf16 array, and comes back as bf16 with the same bits; either
+    package's bf16 checkpoint restores into the port's bf16 template."""
+    w = torch.randn(3, 5, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    CheckpointManager(str(tmp_path / "port")).save(1, {"w": w})
+    with np.load(tmp_path / "port" / "step_00000001" / "state.npz") as z:
+        assert z["w"].dtype == np.dtype("V2")
+    jmanager.CheckpointManager(str(tmp_path / "ref")).save(
+        1, {"w": jnp.asarray(w.float().numpy(), jnp.bfloat16)})
+    for side in ("port", "ref"):
+        state, _ = CheckpointManager(str(tmp_path / side)).restore({"w": torch.zeros_like(w)})
+        assert state["w"].dtype == torch.bfloat16
+        assert torch.equal(state["w"].view(torch.int16), w.view(torch.int16))

@@ -394,6 +394,40 @@ def test_gram_cqr2_not_positive_definite_gives_nan_as_the_reference():
     assert np.array_equal(np.isnan(_np(got)), np.isnan(np.asarray(want)))
 
 
+@pytest.mark.parametrize("m", [1300, 5200], ids=str)
+def test_gram_past_a_block_sums_row_blocks(m):
+    """Past ``GRAM_ROWS`` rows the Gram is a sum of row-block Grams, the
+    last block zero-padded: within f32 rounding of float64, and CholeskyQR2
+    through it (dense, and with 4 shards of 1300 rows at m = 5200) agrees
+    with the reference's."""
+    assert m > lowrank.GRAM_ROWS and m % lowrank.GRAM_ROWS
+    a = np.random.default_rng(15).standard_normal((m, 24)).astype(np.float32)
+    want = a.astype(np.float64).T @ a
+    err = np.abs(_np(lowrank._gram(_t(a))).astype(np.float64) - want).max()
+    assert err <= 1e-6 * np.abs(want).max(), err
+    _close(lowrank.gram_cqr2_q(_t(a)), jlowrank.gram_cqr2_q(jnp.asarray(a)))
+    _close(ft_cqr2_q(_t(a), shards=4), j_ft_cqr2_q(jnp.asarray(a), shards=4))
+
+
+def test_a_nan_pivot_under_info_zero_is_a_refusal(monkeypatch):
+    """cuSOLVER can factor a Gram indefinite by a few roundings with info 0
+    and a NaN pivot: the factor is then all NaN, as after a refusal."""
+    from repro_torch.kernels import ops
+
+    factor = torch.linalg.cholesky_ex
+
+    def nan_pivot(g):
+        low, info = factor(g)
+        low = low.clone()
+        low[..., -1, -1] = float("nan")
+        return low, info
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", nan_pivot)
+    r = ops._chol_upper(torch.eye(3) * 2)
+    upper = torch.ones(3, 3, dtype=torch.bool).triu()
+    assert bool(torch.isnan(r[upper]).all()) and bool((r[~upper] == 0).all())
+
+
 def _mean_grad_inputs():
     rng = np.random.default_rng(13)
     R, m, n, r = 4, 24, 10, 3
