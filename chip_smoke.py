@@ -40,10 +40,12 @@ read just after:
 * **Model serving** (``repro_torch.models``): qwen3-0.6b at its published
   config through ``launch/serve.py``'s ``--mode model --full`` path (batch
   4, prompt 512, 64 greedy steps), and olmo-1b, minitron-4b, gemma2-9b,
-  qwen2-moe-a2.7b, mixtral-8x22b (4 of 56 layers) and qwen2-vl-72b (8 of
-  80) at full widths in bf16.  The models' attention is plain tensor code
-  (the reference's reaches no ``pallas_call``); the launch counts stay 0.
+  qwen2-moe-a2.7b, mixtral-8x22b (4 of 56 layers), qwen2-vl-72b (8 of
+  80), mamba2-2.7b, zamba2-7b and whisper-medium at full widths in bf16.
+  The models' attention and Mamba2's SSD scan are plain tensor code (the
+  reference's reach no ``pallas_call``); the launch counts stay 0.
 * **Training** (``repro_torch.runtime``): olmo-1b at its published config
+  and mamba2-2.7b at its published widths (its depth cut to fit the card)
   through ``launch/train.py``'s path, 4 replicas under BLANK with the
   gradient combine on ``ft_allreduce``; the three stock trainer fault
   scenarios (REBUILD from disk and from the buddy store, SHRINK then
@@ -120,20 +122,26 @@ Phases (each raises on failure; the script then exits non-zero):
    orthogonality and Q against float64; each optimizer step against the
    port's CPU run or its defining property; the checkpoint restored bit
    for bit; the data's batches equal to the host's; each step timed;
-10. (run before 9) serve the transformer zoo: qwen3-0.6b through the
-   launcher's path and the six other architectures (prefill 4 × 512,
-   decode 16 steps), each timed cold and warm with its peak memory, ids in
-   range and logits finite; then at full widths in float32, one unit each,
-   prefill-then-decode against forward (3e-3 relative to max|logit|, 5e-3
-   over 8 more steps), a forward rerun bit for bit, the ring buffer decoded
-   past its window, and qwen3-0.6b and qwen2-moe-a2.7b against the port's
-   CPU run (logits within 1e-4, MoE expert ids and slots equal);
+10. (run before 9) serve the model zoo: qwen3-0.6b through the
+   launcher's path and the nine other architectures (prefill 4 × 512,
+   decode 16 steps; mamba2, zamba2 and whisper at full depth), each timed
+   cold and warm with its peak memory, ids in range and logits finite;
+   then at full widths in float32, one unit each, prefill-then-decode
+   against forward (3e-3 relative to max|logit|, 5e-3 over 8 more steps), a
+   forward rerun bit for bit, the ring buffer decoded past its window,
+   mamba2's chunked SSD against its step-by-step recurrence at a ragged 300
+   tokens, whisper's logits moved by its frames, and qwen3-0.6b,
+   qwen2-moe-a2.7b, mamba2-2.7b and whisper-medium against the port's CPU
+   run (logits within 1e-4, MoE expert ids and slots equal); the SSM,
+   hybrid and enc-dec parts each read 0 port-kernel launches;
 11. (run before 9) train: olmo-1b at its published config (16 layers,
    bf16, remat) through the launcher's ``run`` with ``TRAIN_LAUNCH`` (4
    replicas x 2 x 2048 tokens, BLANK, replica 1 down for steps 2-3): losses
    finite, the ``ft_allreduce`` line, 1 failure, 1 recovery, 2 masked
    steps, one ``train_step`` trace and 6 dispatches, the warm step time,
-   tokens/s and peak allocation (under 70 GB); the three stock trainer
+   tokens/s and peak allocation (under 70 GB); mamba2-2.7b the same way at
+   its published widths, its depth cut to ``MAMBA_TRAIN_LAYERS`` (logged),
+   0 port-kernel launches; the three stock trainer
    scenarios at full widths cut to 2 layers, 2048-token rows (their fault
    stats, final width, last step, traces and dispatches 1/12, 1/9, 2/8),
    one warm step of that size profiled; PowerSGD, OrthoSGD and low-rank 2
@@ -284,29 +292,41 @@ SERVING_PLAIN_TOL = 1e-5
 OLMO_ARCH = "olmo-1b"
 OLMO_SEQ_LEN = 2048
 # Phase 10, model serving (repro_torch.models): qwen3-0.6b at its published
-# config through launch/serve.py's --mode model path; the six other
-# transformer-family architectures at full widths in bf16, at full depth
-# where the bf16 weights fit in 40 GB and cut where they do not (the cut is
-# logged), each prefilling 4 x 512 tokens and decoding 16 greedy steps.
+# config through launch/serve.py's --mode model path; the nine other
+# architectures at full widths in bf16, at full depth where the bf16 weights
+# fit in 40 GB and cut where they do not (the cut is logged), each
+# prefilling 4 x 512 tokens and decoding 16 greedy steps (whisper encodes
+# its 1500 frames first).  The SSM, hybrid and enc-dec families
+# (FAMILY_ARCHS) fit at full depth: mamba2-2.7b 64 layers, zamba2-7b 81
+# (13 units of 6 and a tail of 3), whisper-medium 24 + 24.
 MODEL_LAUNCH = ["--arch", "qwen3-0.6b", "--full", "--batch", "4", "--prompt-len", "512",
                 "--gen", "64"]
 MODEL_ZOO = {"olmo-1b": None, "minitron-4b": None, "gemma2-9b": None,
-             "qwen2-moe-a2.7b": None, "mixtral-8x22b": 4, "qwen2-vl-72b": 8}
+             "qwen2-moe-a2.7b": None, "mixtral-8x22b": 4, "qwen2-vl-72b": 8,
+             "mamba2-2.7b": None, "zamba2-7b": None, "whisper-medium": None}
+FAMILY_ARCHS = ("mamba2-2.7b", "zamba2-7b", "whisper-medium")
 MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 512, 16
 # Correctness at full widths in float32, one unit of each architecture (two
-# layers for gemma2): prefill(t[:s-1]) then decode_step(t[s-1]) against
-# forward(t) at s = 64, then 8 more decode steps, within the reference's
-# own tolerances (tests/test_serving.py: 3e-3, and 5e-3 over several steps),
-# here relative to max|logit|; the ring buffer at mixtral's widths with a
-# 64-slot window, prefilled past it (80 tokens) and decoded to 104.
+# layers for gemma2, one Mamba layer for mamba2, one unit of 6 Mamba layers
+# and the shared block for zamba2, one encoder and one decoder layer for
+# whisper): prefill(t[:s-1]) then decode_step(t[s-1]) against forward(t) at
+# s = 64, then 8 more decode steps, within the reference's own tolerances
+# (tests/test_serving.py: 3e-3, and 5e-3 over several steps), here relative
+# to max|logit|; the ring buffer at mixtral's widths with a 64-slot window,
+# prefilled past it (80 tokens) and decoded to 104; mamba2's chunked SSD
+# against its step-by-step recurrence over a ragged 300 tokens (chunks of
+# 150 at chunk 256): a prefill of the conv window's 3 tokens, then a decode
+# step for each later token, each step's logits against forward's and the
+# final recurrent state against the chunked prefill's of all 300.
 MODEL_CHECK_S, MODEL_CHECK_STEPS = 64, 8
 SERVE_TOL, MULTI_TOL = 3e-3, 5e-3
 RING_WINDOW, RING_PREFILL, RING_END = 64, 80, 104
+SSM_RAGGED = 300
 # The card against the port's CPU run on the same weights and tokens, both in
 # float32 with TF32 off: the two differ only in summation order, ~1e-6 of
 # max|logit| through one unit; a TF32 product (10-bit mantissa, ~5e-4 per
 # product) or a bf16 one lands past this bound.
-CARD_CPU_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b")
+CARD_CPU_ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b", "mamba2-2.7b", "whisper-medium")
 CARD_CPU_TOL = 1e-4
 # Phase 11, training (repro_torch.runtime.trainer): olmo-1b at its published
 # config (16 layers, d_model 2048, d_ff 8192, vocab 50 304, bf16, remat)
@@ -321,6 +341,18 @@ TRAIN_LAUNCH = ["--arch", "olmo-1b", "--full", "--mesh", "4x1", "--seq-len", "20
                 "--global-batch", "8", "--on-failure", "blank", "--fail", "2:1",
                 "--recover", "4:1", "--steps", "6"]
 TRAIN_PEAK_LIMIT = 70e9
+# mamba2-2.7b the same way (its published widths: d_model 2560, 80 heads of
+# 64, state 128, chunk 256, vocab 50 280 untied, bf16, remat), its depth cut
+# from 64 layers to MAMBA_TRAIN_LAYERS so the step's peak stays under
+# TRAIN_PEAK_LIMIT: ~40.2 M parameters a layer and 257 M in the two
+# embeddings; the peak read 33.60, 61.63 and 70.93 GB at 8, 20 and 24
+# layers on an H100 (2.33 GB a layer: the butterfly's six copies of 4
+# stacked bf16 gradient trees, the weights, the f32 moments), so 23 layers
+# peak near 68.6 GB, the deepest under the limit.  The cut is logged.
+MAMBA_TRAIN = ["--arch", "mamba2-2.7b", "--full", "--mesh", "4x1", "--seq-len", "2048",
+               "--global-batch", "8", "--on-failure", "blank", "--fail", "2:1",
+               "--recover", "4:1", "--steps", "6"]
+MAMBA_TRAIN_LAYERS = 23
 # The stock trainer scenarios, the other optimizers and the step profile at
 # olmo-1b's widths cut to 2 layers (2.37 GB of bf16 weights and f32 moments
 # a disk checkpoint), 2048-token rows; the expected train_step counts.
@@ -2180,8 +2212,9 @@ class Smoke:
     # -- phase 10: model serving -------------------------------------------------
 
     def model_path(self) -> None:
-        """The transformer zoo served on the card (``repro_torch.models``
-        through the launcher's ``--mode model`` path), with the launch
+        """The model zoo served on the card (``repro_torch.models`` through
+        the launcher's ``--mode model`` path: the transformers, Mamba2,
+        Zamba2 and Whisper), with the launch
         counts read around the phase: no port kernel runs on this path.
         bf16 products accumulate in f32 here, as the reference's do."""
         torch = self.torch
@@ -2257,35 +2290,68 @@ class Smoke:
         del params, batch, cache
 
     def model_zoo(self) -> None:
-        """The other transformer architectures at full widths in bf16, each
-        freed before the next."""
+        """The other architectures at full widths in bf16, each freed
+        before the next; the SSM, hybrid and enc-dec ones each read their
+        own port-kernel launches."""
+        for arch, depth in MODEL_ZOO.items():
+            with (self.no_launches("model", f"{arch} bf16 serving") if arch in FAMILY_ARCHS
+                  else contextlib.nullcontext()):
+                self.zoo_arch(arch, depth)
+
+    def zoo_arch(self, arch: str, depth) -> None:
+        """One architecture of ``MODEL_ZOO`` drawn on the card, served cold
+        and warm, and freed."""
         torch = self.torch
         from repro_torch.launch.serve import generate
         from repro_torch.models import api
         from repro_torch.optim._tree import leaves
 
-        for arch, depth in MODEL_ZOO.items():
-            cfg = self.configs.get_config(arch)
-            if depth:
-                log(f"[model] {arch}: depth cut from {cfg.n_layers} to {depth} layers "
-                    f"(its bf16 weights exceed 40 GB at full depth)")
-                cfg = dataclasses.replace(cfg, n_layers=depth)
-            t0 = time.perf_counter()
-            base = torch.cuda.memory_allocated()
-            params = api.init(11, cfg, DEVICE)
-            batch = api.synth_batch(12, cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, DEVICE)
-            torch.cuda.synchronize()
-            n = sum(t.numel() for t in leaves(params))
-            log(f"[model] {arch}: {cfg.n_layers} layers, {n / 1e9:.3f} B parameters "
-                f"({sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9:.2f} GB "
-                f"in {cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
-            for label in ("cold", "warm"):
-                torch.cuda.reset_peak_memory_stats()
-                run = generate(params, batch, cfg, MODEL_GEN, s_max=MODEL_PROMPT + MODEL_GEN)
-                self.log_run(run, MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, label, cfg.vocab, base)
-            log(f"[model] {arch} generated ids[0]: {run.ids[0].tolist()}")
-            del params, batch, run
-            torch.cuda.empty_cache()
+        cfg = self.configs.get_config(arch)
+        if depth:
+            log(f"[model] {arch}: depth cut from {cfg.n_layers} to {depth} layers "
+                f"(its bf16 weights exceed 40 GB at full depth)")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        t0 = time.perf_counter()
+        base = torch.cuda.memory_allocated()
+        params = api.init(11, cfg, DEVICE)
+        batch = api.synth_batch(12, cfg, "prefill", MODEL_BATCH, MODEL_PROMPT, DEVICE)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in leaves(params))
+        depth_note = (f"{cfg.n_enc_layers} encoder + " if cfg.family == "encdec" else "")
+        log(f"[model] {arch}: {depth_note}{cfg.n_layers} layers, {n / 1e9:.3f} B parameters "
+            f"({sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9:.2f} GB "
+            f"in {cfg.dtype}), drawn in {time.perf_counter() - t0:.1f} s")
+        for label in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            run = generate(params, batch, cfg, MODEL_GEN, s_max=MODEL_PROMPT + MODEL_GEN)
+            self.log_run(run, MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, label, cfg.vocab, base)
+        log(f"[model] {arch} generated ids[0]: {run.ids[0].tolist()}")
+        if arch in FAMILY_ARCHS:
+            # where a warm prefill and one decode step spend device time
+            s_max = MODEL_PROMPT + MODEL_GEN
+            with torch.inference_mode():
+                logits, cache = api.prefill(params, batch, cfg, s_max=s_max)
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+                self.profile(f"{arch} prefill {MODEL_BATCH} x {MODEL_PROMPT}",
+                             lambda: api.prefill(params, batch, cfg, s_max=s_max))
+                self.profile(f"{arch} decode step at position {MODEL_PROMPT}",
+                             lambda: api.decode_step(params, cache, tok, cfg))
+            del cache
+        del params, batch, run
+        torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def no_launches(self, tag: str, label: str):
+        """The port-kernel launches made inside the block, logged and
+        required to be none (the SSM, hybrid and enc-dec parts of phases
+        10 and 11)."""
+        counts = self.dispatch.launches
+        before = counts.as_dict()
+        yield
+        self.torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in counts.as_dict().items()}
+        log(f"[{tag}] {label}: port-kernel launches {made}")
+        check(not any(made.values()), f"{label} launched a port kernel: {made}")
 
     @contextlib.contextmanager
     def recorded_routes(self):
@@ -2316,7 +2382,8 @@ class Smoke:
         """Each architecture at full widths in float32, one unit: a forward
         rerun bit for bit; for ``CARD_CPU_ARCHS`` the card against the
         port's CPU run (the MoE at its published capacity, drops included);
-        serving ≡ forward; then the ring buffer past its window.
+        serving ≡ forward; then the ring buffer past its window, mamba2's
+        chunked SSD against its recurrence, whisper's frames read.
 
         A MoE forward at the published capacity factor drops assignments,
         and decode's per-token gather drops none, so the two agree only
@@ -2324,64 +2391,140 @@ class Smoke:
         ``smoke()``'s capacity factor 4.0).  Serving ≡ forward is checked at
         ``capacity_factor = n_experts / top_k``: each expert's capacity is
         then the whole sequence."""
+        for arch in ["qwen3-0.6b", *MODEL_ZOO]:
+            with (self.no_launches("model", f"{arch} f32 checks") if arch in FAMILY_ARCHS
+                  else contextlib.nullcontext()):
+                self.check_arch(arch)
+
+    def one_unit(self, arch: str):
+        """The architecture at its published widths in float32, cut to one
+        unit: the transformer's repeating pattern, one Mamba layer, one
+        zamba2 unit (``attn_every`` Mamba layers and the shared block), one
+        whisper encoder and one decoder layer."""
+        from repro_torch.models.transformer import unit_pattern
+
+        cfg = dataclasses.replace(self.configs.get_config(arch), dtype="float32")
+        if cfg.family == "ssm":
+            return dataclasses.replace(cfg, n_layers=1)
+        if cfg.family == "hybrid":
+            return dataclasses.replace(cfg, n_layers=cfg.attn_every)
+        if cfg.family == "encdec":
+            return dataclasses.replace(cfg, n_layers=1, n_enc_layers=1)
+        return dataclasses.replace(cfg, n_layers=len(unit_pattern(cfg)))
+
+    def check_arch(self, arch: str) -> None:
+        """:meth:`model_checks` for one architecture."""
         torch = self.torch
         from repro_torch.models import api, moe
-        from repro_torch.models.transformer import unit_pattern
         from repro_torch.optim._tree import map_params
 
         n = MODEL_CHECK_S + MODEL_CHECK_STEPS
-        for arch in ["qwen3-0.6b", *MODEL_ZOO]:
-            full_cfg = self.configs.get_config(arch)
-            cfg = dataclasses.replace(full_cfg, n_layers=len(unit_pattern(full_cfg)),
-                                      dtype="float32")
-            params = api.init(21, cfg, DEVICE)
-            batch = api.synth_batch(22, cfg, "train", 2, n, DEVICE)
-            del batch["labels"]
-            with torch.inference_mode(), self.recorded_routes() as routes:
-                full = api.forward(params, batch, cfg)
-                again = api.forward(params, batch, cfg)
-            check(self.same_bits(again, full), f"{arch}: a rerun of forward changed bits")
-            routes = routes[:len(routes) // 2]                 # the first forward's
-            serve_cfg = cfg
-            if cfg.n_experts:
-                cap = moe.capacity(cfg, n)
-                drops = sum(int((t == cfg.n_experts * cap).sum()) for t in routes[1::2])
-                log(f"[model] {arch}: at the published capacity factor {cfg.capacity_factor} "
-                    f"(capacity {cap} for {n} tokens) forward dropped {drops} of "
-                    f"{2 * n * cfg.top_k} assignments")
-                serve_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
-            if arch in CARD_CPU_ARCHS:
-                cpu_params = map_params(lambda t: t.cpu(), params)
-                cpu_batch = {k: v.cpu() for k, v in batch.items()}
-                with torch.inference_mode(), self.recorded_routes() as cpu_routes:
-                    on_cpu = api.forward(cpu_params, cpu_batch, cfg)
-                err = self.rel_err(full.cpu(), on_cpu)
-                same = len(routes) == len(cpu_routes) and all(
-                    torch.equal(a.cpu(), b) for a, b in zip(routes, cpu_routes))
-                log(f"[model] {arch} card vs the port's CPU run, same weights and tokens: "
-                    f"logits {err:.3e} (limit {CARD_CPU_TOL}); MoE expert ids and slots "
-                    f"(kept and dropped) equal: {same} ({len(cpu_routes)} tensors)")
-                check(err <= CARD_CPU_TOL, f"{arch}: card vs CPU {err:.3e}")
-                check(same, f"{arch}: the card's MoE routes differ from the CPU's")
-                del cpu_params
-            if serve_cfg is not cfg:
-                with torch.inference_mode():
-                    full = api.forward(params, batch, serve_cfg)
-            errs = self.serve_errors(serve_cfg, params, batch, full, MODEL_CHECK_S - 1)
-            s = MODEL_CHECK_S
-            log(f"[model] {arch} one unit ({cfg.n_layers} layers) f32 at full widths, batch 2"
-                + (f", capacity factor {serve_cfg.capacity_factor:g}" if cfg.n_experts else "")
-                + f": prefill(t[:{s - 1}]) vs forward {errs[0]:.3e}, decode(t[{s - 1}]) "
-                f"{errs[1]:.3e} (limit {SERVE_TOL}), {MODEL_CHECK_STEPS} more steps max "
-                f"{max(errs[2:]):.3e} (limit {MULTI_TOL}), relative to max|logit|; "
-                f"forward rerun bit for bit")
-            check(max(errs[:2]) <= SERVE_TOL and max(errs[2:]) <= MULTI_TOL,
-                  f"{arch}: serving vs forward {errs}")
-            if arch == "mixtral-8x22b":
-                self.ring_check(dataclasses.replace(serve_cfg, sliding_window=RING_WINDOW),
-                                params)
-            del params, full, again
-            torch.cuda.empty_cache()
+        cfg = self.one_unit(arch)
+        params = api.init(21, cfg, DEVICE)
+        batch = api.synth_batch(22, cfg, "train", 2, n, DEVICE)
+        del batch["labels"]
+        with torch.inference_mode(), self.recorded_routes() as routes:
+            full = api.forward(params, batch, cfg)
+            again = api.forward(params, batch, cfg)
+        check(self.same_bits(again, full), f"{arch}: a rerun of forward changed bits")
+        routes = routes[:len(routes) // 2]                 # the first forward's
+        serve_cfg = cfg
+        if cfg.n_experts:
+            cap = moe.capacity(cfg, n)
+            drops = sum(int((t == cfg.n_experts * cap).sum()) for t in routes[1::2])
+            log(f"[model] {arch}: at the published capacity factor {cfg.capacity_factor} "
+                f"(capacity {cap} for {n} tokens) forward dropped {drops} of "
+                f"{2 * n * cfg.top_k} assignments")
+            serve_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        if arch in CARD_CPU_ARCHS:
+            cpu_params = map_params(lambda t: t.cpu(), params)
+            cpu_batch = {k: v.cpu() for k, v in batch.items()}
+            with torch.inference_mode(), self.recorded_routes() as cpu_routes:
+                on_cpu = api.forward(cpu_params, cpu_batch, cfg)
+            err = self.rel_err(full.cpu(), on_cpu)
+            same = len(routes) == len(cpu_routes) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(routes, cpu_routes))
+            log(f"[model] {arch} card vs the port's CPU run, same weights and tokens: "
+                f"logits {err:.3e} (limit {CARD_CPU_TOL}); MoE expert ids and slots "
+                f"(kept and dropped) equal: {same} ({len(cpu_routes)} tensors)")
+            check(err <= CARD_CPU_TOL, f"{arch}: card vs CPU {err:.3e}")
+            check(same, f"{arch}: the card's MoE routes differ from the CPU's")
+            del cpu_params
+        if serve_cfg is not cfg:
+            with torch.inference_mode():
+                full = api.forward(params, batch, serve_cfg)
+        errs = self.serve_errors(serve_cfg, params, batch, full, MODEL_CHECK_S - 1)
+        s = MODEL_CHECK_S
+        depth = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers"
+                 if cfg.family == "encdec" else f"{cfg.n_layers} layers")
+        log(f"[model] {arch} one unit ({depth}) f32 at full widths, batch 2"
+            + (f", capacity factor {serve_cfg.capacity_factor:g}" if cfg.n_experts else "")
+            + f": prefill(t[:{s - 1}]) vs forward {errs[0]:.3e}, decode(t[{s - 1}]) "
+            f"{errs[1]:.3e} (limit {SERVE_TOL}), {MODEL_CHECK_STEPS} more steps max "
+            f"{max(errs[2:]):.3e} (limit {MULTI_TOL}), relative to max|logit|; "
+            f"forward rerun bit for bit")
+        check(max(errs[:2]) <= SERVE_TOL and max(errs[2:]) <= MULTI_TOL,
+              f"{arch}: serving vs forward {errs}")
+        if arch == "mixtral-8x22b":
+            self.ring_check(dataclasses.replace(serve_cfg, sliding_window=RING_WINDOW),
+                            params)
+        if cfg.family == "ssm":
+            self.ssm_recurrence_check(cfg, params)
+        if cfg.family == "encdec":
+            self.frames_check(cfg, params, batch, full)
+        del params, full, again
+        torch.cuda.empty_cache()
+
+    def ssm_recurrence_check(self, cfg, params) -> None:
+        """mamba2's chunked SSD against its step-by-step recurrence at a
+        ragged length: a prefill of the conv window (``ssm_conv - 1``
+        tokens), then one decode step a token; each step's logits against
+        forward's, and the recurrent state after the last step against the
+        chunked prefill's of the whole sequence."""
+        torch = self.torch
+        from repro_torch.models import api, ssm
+
+        start, n = cfg.ssm_conv - 1, SSM_RAGGED
+        chunk = ssm._chunk_len(n, cfg.ssm_chunk)
+        toks = api.synth_batch(24, cfg, "prefill", 2, n, DEVICE)["tokens"]
+        with torch.inference_mode():
+            full = api.forward(params, {"tokens": toks}, cfg)
+            _, chunked = api.prefill(params, {"tokens": toks}, cfg)
+            lp, cache = api.prefill(params, {"tokens": toks[:, :start]}, cfg)
+            errs = [self.rel_err(lp, full[:, start - 1])]
+            for t in range(start, n):
+                ld, cache = api.decode_step(params, cache, toks[:, t:t + 1], cfg)
+                errs.append(self.rel_err(ld, full[:, t]))
+        state_errs = {k: self.rel_err(cache["state"][k], chunked["state"][k])
+                      for k in ("ssm", "conv_x", "conv_bc")}
+        log(f"[model] mamba2-2.7b chunked SSD vs the step-by-step recurrence, one layer f32 at "
+            f"full widths, batch 2 x {n} tokens (chunks of {chunk} at ssm_chunk "
+            f"{cfg.ssm_chunk}): prefill of {start} tokens then {n - start} decode steps, "
+            f"logits max {max(errs):.3e} (limit {MULTI_TOL}) against forward; final states "
+            f"against the chunked prefill's: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in state_errs.items())
+            + f" (limit {MULTI_TOL}), relative to each one's max")
+        check(chunk < cfg.ssm_chunk and n % chunk == 0 and n // chunk > 1,
+              f"{n} tokens are not ragged at chunk {cfg.ssm_chunk}")
+        check(max(errs) <= MULTI_TOL and max(state_errs.values()) <= MULTI_TOL,
+              f"mamba2 chunked vs stepwise: logits {max(errs):.3e}, states {state_errs}")
+
+    def frames_check(self, cfg, params, batch, full) -> None:
+        """whisper's logits change when its audio frames change (the
+        reference's test_whisper_decode_uses_encoder, at full widths), with
+        frames drawn anew: the reference test's frames + 1 shifts every
+        frame by a constant, which the encoder's first LayerNorm takes out,
+        so it moves the logits by rounding only."""
+        torch = self.torch
+        from repro_torch.models import api
+
+        other = api.synth_batch(25, cfg, "prefill", *batch["frames"].shape[:1], 1, DEVICE)
+        with torch.inference_mode():
+            moved = api.forward(params, dict(batch, frames=other["frames"]), cfg)
+        diff = self.rel_err(moved, full)
+        log(f"[model] whisper-medium: other frames move the logits by {diff:.3e} of "
+            f"max|logit| (the decoder reads the encoder through cross-attention)")
+        check(diff > 1e-2, f"whisper logits do not follow the frames: {diff:.3e}")
 
     def serve_errors(self, cfg, params, batch, full, start: int) -> list[float]:
         """Prefill the first ``start`` tokens, then decode each later one:
@@ -2391,7 +2534,8 @@ class Smoke:
         from repro_torch.models import api
 
         n = batch["tokens"].shape[1]
-        pre = {k: v[..., :start] for k, v in batch.items()}
+        pre = {k: (v[..., :start] if k in ("tokens", "positions") else v)
+               for k, v in batch.items()}
         with torch.inference_mode():
             lp, cache = api.prefill(params, pre, cfg, s_max=n)
             errs = [self.rel_err(lp, full[:, start - 1])]
@@ -2443,6 +2587,8 @@ class Smoke:
         counts.reset()
         try:
             self.train_launcher(root / "launch")
+            with self.no_launches("train", "mamba2-2.7b launcher run"):
+                self.train_launcher(root / "mamba2", MAMBA_TRAIN, cut=MAMBA_TRAIN_LAYERS)
             self.train_scenarios(root)
             self.train_optimizers(root)
             self.train_card_vs_cpu(root / "cpu")
@@ -2466,23 +2612,35 @@ class Smoke:
         cfg = self.configs.get_config(OLMO_ARCH)
         return dataclasses.replace(cfg, n_layers=n_layers)
 
-    def train_launcher(self, ckpt_dir: Path) -> None:
-        """olmo-1b at its published config through ``run``, the body of
-        ``python -m repro_torch.launch.train`` with ``TRAIN_LAUNCH``: BLANK
-        over 4 replicas, the failed replica masked for two steps."""
+    def train_launcher(self, ckpt_dir: Path, argv=TRAIN_LAUNCH, cut=None) -> None:
+        """An architecture at its published config (its depth cut to
+        ``cut`` layers where given) through ``run``, the body of ``python
+        -m repro_torch.launch.train`` with ``argv``: BLANK over 4
+        replicas, the failed replica masked for two steps.  The cut goes in
+        through the registry the launcher reads, for this run only."""
         torch = self.torch
+        from repro_torch import configs
         from repro_torch.launch import train
         from repro_torch.models import api
         from repro_torch.optim._tree import leaves
 
         import numpy as np
 
-        args = train.parse_args(TRAIN_LAUNCH + ["--device", DEVICE, "--ckpt-dir", str(ckpt_dir)])
+        args = train.parse_args(argv + ["--device", DEVICE, "--ckpt-dir", str(ckpt_dir)])
+        arch, published = args.arch, configs.get_config
+        if cut is not None:
+            log(f"[train] {arch}: depth cut from {published(arch).n_layers} to {cut} layers "
+                f"(the step's peak allocation must stay under {TRAIN_PEAK_LIMIT / 1e9:.0f} GB)")
+            configs.get_config = lambda name: (dataclasses.replace(published(name), n_layers=cut)
+                                               if name == arch else published(name))
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with self.dispatch.track_dispatch() as stats:
-            tr = train.run(args)
+        try:
+            with self.dispatch.track_dispatch() as stats:
+                tr = train.run(args)
+        finally:
+            configs.get_config = published
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
@@ -2492,24 +2650,26 @@ class Smoke:
         warm = statistics.median(walls[1:])
         tokens = args.global_batch * args.seq_len
         n_params = sum(t.numel() for t in leaves(api.param_specs(cfg)))
-        log(f"[train] olmo-1b ({cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-            f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params / 1e9:.3f} B "
-            f"parameters), {' '.join(TRAIN_LAUNCH)}")
-        log(f"[train] olmo-1b launcher run on {self.card_name}: {len(walls)} steps in "
+        widths = (f"d_model {cfg.d_model}, {cfg.n_ssm_heads} heads of {cfg.ssm_head_dim}, state "
+                  f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.family == "ssm"
+                  else f"d_model {cfg.d_model}, d_ff {cfg.d_ff}")
+        log(f"[train] {arch} ({cfg.n_layers} layers, {widths}, vocab {cfg.vocab}, {cfg.dtype}, "
+            f"remat {cfg.remat}; {n_params / 1e9:.3f} B parameters), {' '.join(argv)}")
+        log(f"[train] {arch} launcher run on {self.card_name}: {len(walls)} steps in "
             f"{run_s:.3f} s (weights drawn on the card included); step walls "
             f"{[round(w, 4) for w in walls]} s; warm step (median of steps 1-{len(walls) - 1}) "
             f"{warm * 1e3:.3f} ms, {tokens / warm:.0f} tokens/s ({tokens} tokens a step over "
             f"{tr.n_replicas} replicas); peak allocation {peak / 1e9:.2f} GB above the "
             f"process's other allocations (limit {TRAIN_PEAK_LIMIT / 1e9:.0f} GB)")
-        log(f"[train] olmo-1b losses {losses}; fault stats {tr.fault_stats}")
-        check(all(np.isfinite(losses)) and len(losses) == 6, f"olmo-1b losses {losses}")
+        log(f"[train] {arch} losses {losses}; fault stats {tr.fault_stats}")
+        check(all(np.isfinite(losses)) and len(losses) == 6, f"{arch} losses {losses}")
         check("gradient all-reduce: ft_allreduce over 4 replicas" in tr.events_log,
-              f"olmo-1b: no ft_allreduce line in {tr.events_log}")
+              f"{arch}: no ft_allreduce line in {tr.events_log}")
         fs = tr.fault_stats
         check((fs["failures"], fs["recoveries"], fs["masked_steps"]) == (1, 1, 2),
-              f"olmo-1b fault stats {fs}")
-        check(peak < TRAIN_PEAK_LIMIT, f"olmo-1b peak allocation {peak / 1e9:.2f} GB")
-        self.train_counts("olmo-1b launcher run", stats, 1, 6)
+              f"{arch} fault stats {fs}")
+        check(peak < TRAIN_PEAK_LIMIT, f"{arch} peak allocation {peak / 1e9:.2f} GB")
+        self.train_counts(f"{arch} launcher run", stats, 1, 6)
         del tr
         torch.cuda.empty_cache()
 

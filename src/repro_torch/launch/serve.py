@@ -10,8 +10,9 @@ default, at the reduced config, ``--full`` at the published one)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --device cpu
 
-The dense, MoE and VLM architectures serve; ``ssm``, ``hybrid`` and
-``encdec`` wait for ROADMAP A.12b.
+Every registered architecture serves: the transformers, Mamba2, Zamba2 and
+Whisper (whose batch carries synthetic audio ``frames``, encoded before the
+prefill).
 
 QR-as-a-service (shape-bucketed continuous batching over the batched
 fault-tolerant pipeline)::

@@ -1,6 +1,7 @@
-"""Model zoo: the dense / MoE / VLM transformers (:mod:`.transformer`) behind
-the uniform :mod:`repro_torch.models.api` surface, the port of
-:mod:`repro.models`.  Mamba2, Zamba2 and Whisper wait for ROADMAP A.12b.
+"""Model zoo, the port of :mod:`repro.models`: the dense / MoE / VLM
+transformers (:mod:`.transformer`), Mamba2 SSD (:mod:`.ssm`), the Zamba2
+hybrid (:mod:`.hybrid`) and Whisper enc-dec (:mod:`.encdec`), all behind the
+uniform :mod:`repro_torch.models.api` surface.
 
 :func:`params_from_reference` and :func:`params_to_reference` carry a
 parameter tree (or a decode cache) across, bit for bit: bf16 arrays, which

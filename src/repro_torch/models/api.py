@@ -10,9 +10,10 @@ port of :mod:`repro.models.api`.
   * :class:`LM`                            → an ``nn.Module`` holding the tree
 
 Entry points that make tensors run on the card unless the caller passes
-``device="cpu"``; the others run where their inputs are.  The dense, MoE
-and VLM families are here; ``ssm``, ``hybrid`` and ``encdec`` wait for
-ROADMAP A.12b.
+``device="cpu"``; the others run where their inputs are.  Every registered
+architecture routes here: the dense, MoE and VLM transformers, Mamba2
+(``ssm``), Zamba2 (``hybrid``) and Whisper (``encdec``, whose batches carry
+``frames``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.collective.comm import resolve_device
 
-from . import frontends, transformer
+from . import encdec, frontends, hybrid, ssm, transformer
 from .layers import generator_on
 
 __all__ = [
@@ -33,14 +34,13 @@ _FAMILIES = {
     "dense": transformer,
     "moe": transformer,
     "vlm": transformer,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "encdec": encdec,
 }
-_WAITING = ("ssm", "hybrid", "encdec")
 
 
 def module_for(cfg):
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A.12b)")
     return _FAMILIES[cfg.family]
 
 
@@ -54,7 +54,10 @@ def param_specs(cfg):
 
 
 def forward(params, batch, cfg):
-    return module_for(cfg).forward(params, batch["tokens"], cfg, batch.get("positions"))
+    mod = module_for(cfg)
+    if cfg.family == "encdec":
+        return mod.forward(params, batch["tokens"], cfg, frames=batch["frames"])
+    return mod.forward(params, batch["tokens"], cfg, batch.get("positions"))
 
 
 def loss_fn(params, batch, cfg):
@@ -75,8 +78,11 @@ def loss_fn(params, batch, cfg):
 
 
 def prefill(params, batch, cfg, s_max=None):
-    return module_for(cfg).prefill(params, batch["tokens"], cfg,
-                                   positions=batch.get("positions"), s_max=s_max)
+    mod = module_for(cfg)
+    if cfg.family == "encdec":
+        return mod.prefill(params, batch["tokens"], cfg, frames=batch["frames"], s_max=s_max)
+    return mod.prefill(params, batch["tokens"], cfg, positions=batch.get("positions"),
+                       s_max=s_max)
 
 
 def decode_step(params, cache, token, cfg):
@@ -145,7 +151,8 @@ def synth_batch(generator, cfg, kind: str, batch: int, seq: int, device=None) ->
 # ---------------------------------------------------------------------------
 
 class LM(torch.nn.Module):
-    """A model's parameter tree registered as ``nn.Parameter``s.
+    """A model's parameter tree registered as ``nn.Parameter``s (a None
+    leaf, the hybrid's absent tail, stays None).
 
     ``LM(cfg)`` draws the tree with :func:`init` (seed 0 on the card unless
     ``generator``/``device`` say otherwise); ``LM(cfg, params)`` adopts a
@@ -167,6 +174,8 @@ class LM(torch.nn.Module):
             return {k: self._register(v, f"{path}__{k}" if path else k) for k, v in t.items()}
         if isinstance(t, tuple):
             return tuple(self._register(v, f"{path}__{i}") for i, v in enumerate(t))
+        if t is None:
+            return None
         self.register_parameter(path, torch.nn.Parameter(t, requires_grad=t.is_floating_point()))
         return path
 
@@ -176,10 +185,10 @@ class LM(torch.nn.Module):
                 return {k: go(v) for k, v in t.items()}
             if isinstance(t, tuple):
                 return tuple(go(v) for v in t)
-            return getattr(self, t)
+            return None if t is None else getattr(self, t)
         return go(self._layout)
 
     def forward(self, batch):
         """Logits (B, S, V) of ``batch`` (``tokens`` and, for VLMs,
-        ``positions``)."""
+        ``positions``; for Whisper, ``frames``)."""
         return forward(self.tree(), batch, self.cfg)

@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.collective.comm import resolve_device
 
@@ -33,6 +34,7 @@ __all__ = [
     "init_mlp", "mlp",
     "init_embedding", "embed", "unembed",
     "softcap", "cross_entropy", "resolve_q_chunk",
+    "unit", "remat",
 ]
 
 
@@ -423,3 +425,26 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     if z_loss:
         loss = loss + z_loss * torch.square(lse).mean()
     return loss
+
+
+# ---------------------------------------------------------------------------
+# Layer stacks
+# ---------------------------------------------------------------------------
+
+def unit(tree, u: int):
+    """The ``u``-th slice of a tree of stacked tensors (one step of the
+    reference's ``lax.scan`` over the stack)."""
+    if isinstance(tree, dict):
+        return {k: unit(v, u) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(unit(v, u) for v in tree)
+    return tree[u]
+
+
+def remat(body, cfg):
+    """``body`` recomputed in the backward pass (only its inputs, the
+    residual stream and the unit's parameters, are kept), when gradients
+    are being recorded."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)

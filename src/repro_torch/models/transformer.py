@@ -24,7 +24,6 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.collective.comm import resolve_device
 
@@ -98,15 +97,6 @@ def init(generator, cfg, device=None) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _unit(tree, u: int):
-    """The ``u``-th unit's slice of a tree of stacked tensors."""
-    if isinstance(tree, dict):
-        return {k: _unit(v, u) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_unit(v, u) for v in tree)
-    return tree[u]
-
-
 def _positions_default(cfg, b, s, offset=0, device=None):
     pos = (torch.arange(s, dtype=torch.int32, device=device) + offset)[None].expand(b, s)
     if cfg.mrope_sections:
@@ -133,15 +123,6 @@ def _sublayer(p, x, cfg, kind: SubKind, cos_sin, cache):
     return x + h, aux
 
 
-def _remat(body, cfg):
-    """``body`` recomputed in the backward pass (only its inputs, the
-    residual stream and the unit's parameters, are kept), when gradients
-    are being recorded."""
-    if not cfg.remat or not torch.is_grad_enabled():
-        return body
-    return lambda *args: checkpoint(body, *args, use_reentrant=False)
-
-
 def forward(params, tokens, cfg, positions=None):
     """tokens (B, S) → logits (B, S, V) f32.  Training/eval forward."""
     b, s = tokens.shape
@@ -156,9 +137,9 @@ def forward(params, tokens, cfg, positions=None):
             h, _ = _sublayer(unit_params[i], h, cfg, kind, cos_sin, None)
         return h
 
-    step = _remat(body, cfg)
+    step = L.remat(body, cfg)
     for u in range(_n_units(cfg)):
-        x = step(x, _unit(params["units"], u))
+        x = step(x, L.unit(params["units"], u))
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x, cfg)
 
@@ -225,10 +206,10 @@ def prefill(params, tokens, cfg, positions=None, s_max: int | None = None):
             kvs.append((k, v))
         return h, tuple(kvs)
 
-    step = _remat(body, cfg)
+    step = L.remat(body, cfg)
     per_unit = []
     for u in range(_n_units(cfg)):
-        x, kvs = step(x, _unit(params["units"], u))
+        x, kvs = step(x, L.unit(params["units"], u))
         per_unit.append(kvs)
     x = L.apply_norm(params["final_norm"], x, cfg)
     logits = L.unembed(params["embed"], x[:, -1:], cfg)[:, 0]
@@ -257,7 +238,7 @@ def decode_step(params, cache, token, cfg):
     pattern = unit_pattern(cfg)
     new = [([], []) for _ in pattern]
     for u in range(_n_units(cfg)):
-        unit_params = _unit(params["units"], u)
+        unit_params = L.unit(params["units"], u)
         for i, kind in enumerate(pattern):
             sub = {"k": cache["kv"][i]["k"][u], "v": cache["kv"][i]["v"][u], "len": pos_len}
             x, nc = _sublayer(unit_params[i], x, cfg, kind, cos_sin, sub)

@@ -41,6 +41,7 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.tsqr_paper",
             "repro_torch.models.api", "repro_torch.models.layers", "repro_torch.models.moe",
             "repro_torch.models.transformer", "repro_torch.models.frontends",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid", "repro_torch.models.encdec",
             "repro_torch.runtime.trainer", "repro_torch.runtime.elastic",
             "repro_torch.launch.train"} <= set(
                 report["modules"])

@@ -1,6 +1,7 @@
 """The port's model serving path (``prefill``, ``decode_step``, the
-``--mode model`` launcher) against the JAX package's on the CPU, for the
-seven transformer-family architectures at ``smoke()`` sizes.
+``--mode model`` launcher) against the JAX package's on the CPU, for all ten
+architectures at ``smoke()`` sizes: the seven of the transformer families,
+Mamba2, Zamba2 and Whisper.
 
 * With the reference's parameters carried across: ``prefill`` logits and
   every cache tensor, then ``decode_step`` logits and caches, within
@@ -10,7 +11,8 @@ seven transformer-family architectures at ``smoke()`` sizes.
 * Every case of the reference's ``tests/test_serving.py`` and
   ``tests/test_models_smoke.py`` for these architectures, on the port's own
   parameters, with the reference's tolerances: prefill-then-decode ≡
-  forward, multi-step decode, the ring buffer past its window, shapes and
+  forward, multi-step decode (qwen3, mamba2, zamba2), the ring buffer past
+  its window, shapes and
   finiteness, finite gradients, the loss falling under SGD, the softcap
   bound, M-RoPE shifts, the sliding-window mask.
 * The launcher of each side in a fresh process prints the same lines.
@@ -43,7 +45,7 @@ from repro_torch.optim._tree import leaves, map_params  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ["qwen2-moe-a2.7b", "mixtral-8x22b", "gemma2-9b", "olmo-1b", "qwen3-0.6b",
-         "minitron-4b", "qwen2-vl-72b"]
+         "minitron-4b", "qwen2-vl-72b", "mamba2-2.7b", "zamba2-7b", "whisper-medium"]
 B, S, GEN = 2, 24, 5
 S_MAX = S + 4
 # the reference tests' own tolerances (rtol = atol)
@@ -82,12 +84,11 @@ def case(request):
 
 
 def _assert_cache_close(got, want):
+    """Every family's cache: the same tree, ``len`` equal, each tensor
+    (KV caches, recurrent states, cross K/V) f32 within ``TOL``."""
     assert int(got["len"]) == int(want["len"])
-    assert len(got["kv"]) == len(want["kv"])
-    for g, w in zip(got["kv"], want["kv"]):
-        for name in ("k", "v"):
-            assert g[name].dtype == torch.float32
-            assert mp.rel_err(g[name], w[name]) <= mp.TOL
+    assert all(t.dtype == torch.float32 for t in leaves(got) if t.dim())
+    mp.assert_tree_close(got, want)
 
 
 def test_prefill_and_cache_match_reference(case):
@@ -104,12 +105,12 @@ def test_decode_step_matches_reference(case):
     with torch.no_grad():
         _, cache = api.prefill(params, mp.to_port(_prefix(case.batch, S - 1)), case.cfg,
                                s_max=S_MAX)
-        before = map_params(torch.clone, cache["kv"])
+        before = map_params(torch.clone, cache)
         token = torch.from_numpy(case.batch["tokens"][:, S - 1:])
         ld, cache2 = api.decode_step(params, cache, token, case.cfg)
     assert mp.rel_err(ld, case.ld) <= mp.TOL
     _assert_cache_close(cache2, case.cache2)
-    assert all(torch.equal(a, b) for a, b in zip(leaves(before), leaves(cache["kv"])))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(before), leaves(cache)))
 
 
 def test_greedy_ids_match_reference(case):
@@ -158,6 +159,17 @@ def _decode_along(cfg, params, toks, start, s_max):
 def test_multi_step_decode_consistency(gen):
     """Greedy decode via repeated decode_step == teacher-forced forward."""
     cfg = get_config("qwen3-0.6b").smoke()
+    params = api.init(gen(), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 20), generator=gen(), dtype=torch.int32)
+    _decode_along(cfg, params, toks, 12, 24)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_multi_step_decode_consistency_of_the_recurrent_families(gen, arch):
+    """The reference's case for mamba2 and zamba2: greedy decode via repeated
+    decode_step == teacher-forced forward (the recurrent states and the
+    shared block's KV caches carried over 8 steps)."""
+    cfg = get_config(arch).smoke()
     params = api.init(gen(), cfg, device="cpu")
     toks = torch.randint(0, cfg.vocab, (1, 20), generator=gen(), dtype=torch.int32)
     _decode_along(cfg, params, toks, 12, 24)

@@ -24,18 +24,23 @@ import jax_reference  # noqa: E402,F401  (before any repro import)
 import jax  # noqa: E402
 import ml_dtypes  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
+from repro.configs.base import list_archs as jlist_archs  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models import frontends as jfrontends  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 
 import model_parity as mp  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import api, frontends, layers, params_to_reference  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import encdec, hybrid, ssm, transformer  # noqa: E402
 from repro_torch.optim._tree import leaves  # noqa: E402
 
 ARCHS = ["olmo-1b", "qwen3-0.6b", "minitron-4b", "gemma2-9b", "qwen2-vl-72b"]
+# the SSM, hybrid and enc-dec families (held to the reference in
+# test_torch_ssm.py, test_torch_hybrid.py and test_torch_encdec.py), for the
+# cases here that apply to every family
+FAMILY_ARCHS = ["mamba2-2.7b", "zamba2-7b", "whisper-medium"]
 B, S = 2, 32
 LOSS_WEIGHT = np.array([1.0, 0.0], np.float32)     # the second row blanked
 # bf16 forward against the reference's, relative to max|logit|: both round
@@ -273,10 +278,20 @@ def test_synth_batch_has_the_reference_layout():
 
 
 def test_waiting_families_name_their_roadmap_item():
-    for arch in ("mamba2-2.7b", "zamba2-7b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
-            api.init(0, get_config(arch).smoke(), device="cpu")
-        assert japi.module_for(jget(arch)) is not None     # the reference routes all ten
+    """No family waits any more: ``api.module_for`` routes every registered
+    architecture to the module of the reference's family (the SSM, hybrid
+    and enc-dec families included), and ``init`` draws each of them."""
+    assert sorted(list_archs()) == sorted(jlist_archs()) and len(jlist_archs()) == 10
+    for arch in jlist_archs():
+        cfg = get_config(arch)
+        mod = api.module_for(cfg)
+        assert mod.__name__.rsplit(".", 1)[1] == japi.module_for(jget(arch)).__name__.rsplit(
+            ".", 1)[1]
+    for arch, mod in (("mamba2-2.7b", ssm), ("zamba2-7b", hybrid), ("whisper-medium", encdec)):
+        cfg = get_config(arch).smoke()
+        assert api.module_for(cfg) is mod
+        params = api.init(0, cfg, device="cpu")
+        assert _specs(params) == _specs(japi.param_specs(jget(arch).smoke()))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmo-1b"])
@@ -301,7 +316,7 @@ def test_cross_attention_matches_reference(arch):
     assert mp.rel_err(got, want) <= mp.TOL
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_decode_cache_specs_match_reference(arch):
     cfg = get_config(arch).smoke()
     want = _specs(japi.decode_cache_specs(cfg, 2, 40))

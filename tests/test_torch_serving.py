@@ -446,13 +446,18 @@ def test_qr_launcher_prints_the_reference_counts():
 
 
 def test_qr_launcher_model_mode_waits_for_the_model_zoo():
-    """``--mode model`` serves the dense, MoE and VLM families (held to the
-    reference in test_torch_model_serving.py); it asks for ``--arch`` as the
-    reference's does, and the SSM, hybrid and enc-dec families wait for
-    ROADMAP A.12b."""
+    """``--mode model`` serves every family of the model zoo (held to the
+    reference in test_torch_model_serving.py): it asks for ``--arch`` as the
+    reference's does, and ``--arch mamba2-2.7b`` on the CPU, in a fresh
+    process, exits 0 with the launcher's two lines."""
     from repro_torch.launch import serve as launcher
 
     with pytest.raises(SystemExit, match="--arch is required"):
         launcher.main(["--mode", "model"])
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        launcher.main(["--mode", "model", "--arch", "mamba2-2.7b", "--device", "cpu"])
+    lines = _launch([sys.executable, "-m", "repro_torch.launch.serve", "--mode", "model",
+                     "--arch", "mamba2-2.7b", "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "16", "--gen", "4"])
+    assert len(lines) == 2
+    assert re.fullmatch(r"arch=mamba2-2\.7b-smoke prefill\(2x16\)=[0-9.]+ms decode 4 "
+                        r"steps=[0-9.]+ms \([0-9.]+ ms/tok\)", lines[0])
+    assert re.fullmatch(r"generated ids\[0\]: \[\d+(, \d+){3}\]", lines[1])

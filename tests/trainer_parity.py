@@ -87,8 +87,11 @@ def without_stragglers(log: list[str]) -> list[str]:
 
 
 def _data_cfg(make, cfg, case: Case):
+    """The launcher's data config: Whisper's batches carry ``enc_frames``
+    frames of ``d_model``."""
     return make(vocab=cfg.vocab, seq_len=case.seq_len, global_batch=case.global_batch,
-                family=cfg.family, d_model=cfg.d_model)
+                family=cfg.family, d_model=cfg.d_model,
+                enc_frames=cfg.enc_frames if cfg.family == "encdec" else 0)
 
 
 def copy_tree(tree):
@@ -219,6 +222,19 @@ ELASTIC_CASES = {
     "vlm": Case(arch="qwen2-vl-72b", data=4,
                 tcfg=(("steps", 2), ("on_failure", "blank"), ("ckpt_every", 0)),
                 events=((1, "fail", 2, 1),)),
+    # the SSM, hybrid and enc-dec families (tests/test_torch_train_families.py):
+    # mamba2 under BLANK over 4 replicas with a failure and a recovery
+    "mamba2_blank4": Case(arch="mamba2-2.7b", data=4,
+                          tcfg=(("steps", 4), ("on_failure", "blank"), ("ckpt_every", 0)),
+                          events=((1, "fail", 1, 1), (3, "recover", 1, 1))),
+    # zamba2 at smoke() (one unit, no tail) over 2 replicas, a straggler
+    "zamba2_blank2": Case(arch="zamba2-7b", data=2,
+                          tcfg=(("steps", 3), ("on_failure", "blank"), ("ckpt_every", 0)),
+                          events=((1, "straggle", 0, 1),)),
+    # whisper fed SyntheticCorpus's frames over 2 replicas, a failure
+    "whisper_blank2": Case(arch="whisper-medium", data=2,
+                           tcfg=(("steps", 3), ("on_failure", "blank"), ("ckpt_every", 0)),
+                           events=((2, "fail", 1, 1),)),
 }
 
 
