@@ -155,6 +155,19 @@ Phases (each raises on failure; the script then exits non-zero):
    with the SM clock and power draw under the redesigned kernels and two
    library calls, and time ``factorize`` end to end (coded against the
    butterfly as well).
+12. tune the kernels' row splits (``repro_torch.kernels.autotune``) at
+   the main path's shapes, 8 × 2^19 × 128 (TSQR) and 8 × 2^17 × 512 (the
+   blocked QR), persist the table under ``build/autotune/``, reload it and
+   check every winner legal and re-picked from its persisted times, the
+   ``ops`` wrappers' bytes and dispatches equal to the predicted and no
+   warm trace; with the table installed, fused ≡ unfused, S ≡
+   ``panel_cross(A_new)`` and pipeline ≡ eager bit for bit, R within 4e-6
+   (TSQR) and 2e-6 (blocked) of float64, ``QRConfig(block_rows=...)``
+   reaching the kernels' split and ``CostModel.tuned()`` taking the
+   table's constants; after ``clear()``, R equal to the untuned run's bit
+   for bit; then ``python -m repro_torch.bench run --tier smoke`` in
+   process, every case ``ok``.  Each winner is printed beside the untuned
+   split with both times.
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
@@ -252,6 +265,13 @@ MAIN_ENTRY = {"gram": "19gram_partial_kernelIfLi128ELi4E", "fused_apply_gram":
 # combine_gram's widths (8 matrices each; n <= 512 in every TSQR use) and the
 # coded scheme's parity counts.
 COMBINE_WIDTHS = (32, 128, 512)
+# phase 12: the tuned shapes (TSQR's and the blocked QR's) and where the
+# table and the smoke-tier bench document go (both under build/, ignored)
+AUTOTUNE_SHAPES = {HEADLINE: MAIN_SHAPES[HEADLINE], "general_full": BLOCKED_SHAPES["general_full"]}
+AUTOTUNE_DIR = Path("build") / "autotune"
+AUTOTUNE_REPS = 5
+BENCH_OUT = Path("build") / "bench_torch" / "smoke.json"
+TUNED_SPLIT = 2048     # an explicit QRConfig(block_rows=...) the blocked QR must reach
 # the replay phase's shapes beside general_full and general_ragged: the
 # batched TSQR of B = 4 and B = 1 paper_fig-sized stacks (paper_fig's call
 # is host-bound), and general_full with its rows cut 32-fold
@@ -436,6 +456,7 @@ def main() -> int:
     smoke.timings()
     smoke.blocked_timings()
     smoke.combine_gram_timing()
+    smoke.autotune_path()
     log(json.dumps({"kernels": smoke.kernel_rows()}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1022,6 +1043,149 @@ class Smoke:
                     f"pipeline={pipeline}: median {statistics.median(samples):.3f} ms "
                     f"(min {min(samples):.3f}, max {max(samples):.3f}, 5 runs)")
 
+    # -- phase 12: the autotuner and the bench harness -----------------------
+
+    def autotune_path(self) -> None:
+        torch = self.torch
+        from repro_torch.bench.__main__ import main as bench_main
+        from repro_torch.bench.cases import autotune as tune_case
+        from repro_torch.kernels import _launch
+        from repro_torch.kernels import autotune as at
+        from repro_torch.qr import QRConfig, factorize
+        from repro_torch.serve.planner import CostModel
+
+        t_phase = time.perf_counter()
+        at.clear()
+        tsqr = self.randn(MAIN_SHAPES[HEADLINE], 1001)
+        blk = self.randn(BLOCKED_SHAPES["general_full"], 3000)
+        cfgs = {"tsqr": (tsqr, QRConfig(variant="redundant", local_r="cqr2_pallas"), R_TIGHT),
+                "blocked": (blk, QRConfig(panel_width=PANEL, use_pallas=True), R_TIGHT_BLOCKED)}
+        truth = {k: self.truth_r(a) for k, (a, _, _) in cfgs.items()}
+        untuned = {k: factorize(a, cfg).r.clone() for k, (a, cfg, _) in cfgs.items()}
+        torch.cuda.synchronize()
+
+        shapes = [(m, n) for _, m, n in AUTOTUNE_SHAPES.values()]
+        t0 = time.perf_counter()
+        doc = at.tune(shapes, at.DEFAULT_KERNELS, batch=P, reps=AUTOTUNE_REPS,
+                      out_dir=str(AUTOTUNE_DIR))
+        tune_s = time.perf_counter() - t0
+        table = at.load_table(str(AUTOTUNE_DIR / f"{doc['backend']}.json"))
+        check(table == json.loads(json.dumps(doc)), "autotune: the reloaded table differs")
+        mc = table["machine"]
+        log(f"[autotune] {len(table['entries'])} entries tuned in {tune_s:.1f} s at batch {P} "
+            f"on {self.card_name}; probes: copy {mc['mem_bw_bytes_per_s']:.4e} B/s, f32 "
+            f"product {mc['flops_per_s']:.4e} flop/s")
+        for key, e in sorted(table["entries"].items()):
+            check(at.entry_legal(e), f"autotune {key}: illegal winner {e['block_rows']}")
+            check(at.select_winner(e) == e["block_rows"],
+                  f"autotune {key}: the persisted times re-pick {at.select_winner(e)}, "
+                  f"not {e['block_rows']}")
+            default = at.default_block_rows(e["kernel"], e["m"], e["n"], batch=e["batch"])
+            times = {c["block_rows"]: c["measured_s"] for c in e["candidates"]}
+            measured = ", ".join(f"{br}: {t * 1e3:.4f}" for br, t in sorted(times.items())
+                                 if t is not None)
+            t_def = times.get(default)
+            log(f"[autotune] {key}: winner {e['block_rows']} rows a split "
+                f"({times[e['block_rows']] * 1e3:.4f} ms) against the untuned {default} ("
+                + (f"{t_def * 1e3:.4f} ms" if t_def is not None else "not measured")
+                + f"); measured ms {{{measured}}}; predicted {e['predicted_s'] * 1e3:.4f} ms, "
+                f"fused={e['fuse_want_q']}")
+        for m, n in shapes:
+            acc = tune_case.accounting(table["entries"], m, n, batch=P)
+            tune_case.check_accounting(acc)
+            log(f"[autotune] {P} x {m} x {n}: predicted bytes and dispatches equal the "
+                f"observed, 0 warm traces: " + ", ".join(
+                    f"{k} {r['observed_read_bytes']}+{r['observed_write_bytes']} B"
+                    for k, r in acc.items()))
+
+        # the bitwise contracts with the table installed
+        ops = self.ops
+        a = self.randn(MAIN_SHAPES[HEADLINE], 4101)
+        n_ = a.shape[-1]
+        w = self.randn((P, n_, n_), 4102) / n_
+        q1, g_fused = ops.fused_apply_gram(a, w, use_pallas=True)
+        g_unfused = ops.gram(ops.apply_right(a, w, use_pallas=True), use_pallas=True)
+        check(self.same_bits(g_fused, g_unfused), "tuned: fused G' != gram(apply_right)")
+        _, r_fused = ops.cholesky_qr2(a, use_pallas=True)
+        _, r_split = ops.cholesky_qr2(a, use_pallas=True, fused=False)
+        check(self.same_bits(r_fused, r_split), "tuned: fused CholeskyQR2 R != unfused")
+        del a, w, q1
+        p_, m_, n_ = BLOCKED_SHAPES["general_full"]
+        b = at.trailing_panel_width(n_)
+        at_, qt = self.randn((p_, m_, n_), 4103), self.randn((p_, m_, b), 4104)
+        wt = self.randn((p_, b, n_), 4105) / n_
+        a_new, s = ops.trailing_update(at_, qt, wt, next_width=b, use_pallas=True)
+        check(self.same_bits(s, ops.panel_cross(a_new, split=b, use_pallas=True)),
+              "tuned: trailing_update's S != panel_cross(A_new)")
+        del at_, qt, wt, a_new, s
+        tuned = {}
+        for k, (x, cfg, limit) in cfgs.items():
+            tuned[k] = factorize(x, cfg).r
+            t = truth[k]
+            err = max(((tuned[k][i].double() - t).abs().max() / t.abs().max()).item()
+                      for i in range(P))
+            check(err <= limit, f"tuned {k}: R rel err {err:.3e} > {limit}")
+            log(f"[autotune] tuned {k} {tuple(x.shape)}: R rel err {err:.3e} (limit {limit}); "
+                f"R {'==' if self.same_bits(tuned[k], untuned[k]) else '!='} the untuned R")
+        eager = factorize(blk, dataclasses.replace(cfgs["blocked"][1], pipeline="off")).r
+        check(self.same_bits(eager, tuned["blocked"]), "tuned: blocked pipeline != eager")
+        log("[autotune] tuned: fused ≡ unfused (G' and R), S ≡ panel_cross(A_new), "
+            "pipeline ≡ eager, bit for bit")
+
+        # an explicit split reaches the kernels; the planner takes the constants
+        seen = []
+        real = _launch.cross_split
+
+        def spy(batch, m, rows_per_split=None):
+            out = real(batch, m, rows_per_split)
+            seen.append(out[0])
+            return out
+
+        _launch.cross_split = spy
+        try:
+            explicit = factorize(blk, dataclasses.replace(cfgs["blocked"][1],
+                                                          block_rows=TUNED_SPLIT)).r
+            torch.cuda.synchronize()
+        finally:
+            _launch.cross_split = real
+        untuned_rows = real(P, BLOCKED_SHAPES["general_full"][1])[0]
+        check(seen and set(seen) == {TUNED_SPLIT} != {untuned_rows},
+              f"QRConfig(block_rows={TUNED_SPLIT}): the kernels took splits {set(seen)}")
+        t = truth["blocked"]
+        err = max(((explicit[i].double() - t).abs().max() / t.abs().max()).item()
+                  for i in range(P))
+        check(err <= R_TIGHT_BLOCKED, f"block_rows={TUNED_SPLIT}: R rel err {err:.3e}")
+        model = CostModel.tuned()
+        check((model.mem_bw_bytes_per_s, model.flops_per_s)
+              == (mc["mem_bw_bytes_per_s"], mc["flops_per_s"]),
+              "CostModel.tuned() did not take the table's constants")
+        log(f"[autotune] QRConfig(block_rows={TUNED_SPLIT}): {len(seen)} cross launches at "
+            f"{TUNED_SPLIT} rows a split (untuned {untuned_rows}), R rel err {err:.3e}; "
+            f"CostModel.tuned() takes the table's bandwidth and rate")
+
+        at.clear()
+        check(CostModel.tuned() == CostModel(), "CostModel.tuned() != CostModel() after clear")
+        for k, (x, cfg, _) in cfgs.items():
+            check(self.same_bits(factorize(x, cfg).r, untuned[k]),
+                  f"after clear(): {k} R differs from the untuned run's")
+        log("[autotune] after clear(): TSQR and blocked R equal the untuned runs' bit for bit")
+        del tsqr, blk, untuned, tuned, eager, explicit, truth
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        rc = bench_main(["run", "--tier", "smoke", "--out", str(BENCH_OUT)])
+        bench = json.loads(BENCH_OUT.read_text())
+        for name, c in sorted(bench["cases"].items()):
+            t_ms = c.get("metrics", {}).get("time_mean_us", {}).get("value", float("nan")) / 1e3
+            log(f"[bench] smoke {name}: {c['status']} ({len(c.get('metrics', {}))} metrics, "
+                f"{t_ms:.1f} ms) {c.get('error', '')}")
+        bad = {n: c["status"] for n, c in bench["cases"].items() if c["status"] != "ok"}
+        check(rc == 0 and not bad, f"bench smoke tier: rc {rc}, not ok: {bad}")
+        check(not at.installed(), "the bench's autotune case left a table installed")
+        log(f"[bench] smoke tier: {len(bench['cases'])} cases ok in "
+            f"{time.perf_counter() - t0:.1f} s on {bench['card']}; phase 12 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
     # -- phase 6: combine_gram ----------------------------------------------
 
     def combine_gram_path(self) -> None:
@@ -1571,16 +1735,16 @@ class Smoke:
             return x64[..., :split].mT @ x64
 
         def gram(kernel):
-            def call(a):
-                g = kernel(a)
+            def call(a, **kw):
+                g = kernel(a, **kw)
                 note("gram", (a,), (), self.rel_err(g, ref.gram(a)),
                      self.rel_err(g.double(), cross64(a, a.shape[-1])))
                 return g
             return call
 
         def panel_cross(kernel):
-            def call(a, *, split):
-                s = kernel(a, split=split)
+            def call(a, *, split, **kw):
+                s = kernel(a, split=split, **kw)
                 note("panel_cross", (a,), (split,),
                      self.rel_err(s, ref.panel_cross(a, split=split)),
                      self.rel_err(s.double(), cross64(a, split)))
@@ -1588,8 +1752,8 @@ class Smoke:
             return call
 
         def pad_cross(kernel):
-            def call(a, *, split, out_width):
-                a_pad, s = kernel(a, split=split, out_width=out_width)
+            def call(a, *, split, out_width, **kw):
+                a_pad, s = kernel(a, split=split, out_width=out_width, **kw)
                 want = ref.pad_cross(a, split=split, out_width=out_width)
                 note("pad_cross", (a,), (split, out_width),
                      max(self.rel_err(a_pad, want[0]), self.rel_err(s, want[1])),
@@ -1598,8 +1762,8 @@ class Smoke:
             return call
 
         def trailing_update(kernel):
-            def call(a, q, w, *, next_width=0, out=None):
-                got = kernel(a, q, w, next_width=next_width, out=out)
+            def call(a, q, w, *, next_width=0, out=None, **kw):
+                got = kernel(a, q, w, next_width=next_width, out=out, **kw)
                 want = ref.trailing_update(a, q, w, next_width=next_width)
                 a_new, s = (got if next_width else (got, None))
                 exact = a.double() - q.double() @ w.double()

@@ -27,9 +27,11 @@ seed:
   the reference's ``SkipCase`` branch (too few JAX devices) has no
   counterpart.
 
-The bench registry and schema wait for ROADMAP A.15, so :class:`Metric`
-and :class:`BenchFailure` are kept here.  Runners take ``device`` (``None``
-means the GPU, as every entry point of the port).
+:class:`Metric` and :class:`BenchFailure` live in :mod:`.schema` and
+:mod:`.registry` and are re-exported here.  Runners take ``device``
+(``None`` means the GPU, as every entry point of the port).  Importing this
+module registers the ``fault_scenarios`` bench case, the whole stock sweep
+as one case, as the reference's does.
 """
 from __future__ import annotations
 
@@ -43,11 +45,15 @@ import torch
 
 from repro_torch.runtime.trainer import FaultEvent, Trainer, TrainerConfig
 
+from .registry import BenchFailure, bench_case
+from .schema import Metric
+
 __all__ = [
     "BenchFailure",
     "BlockedQRScenario",
     "CollectiveScenario",
     "Metric",
+    "case",
     "ReduceRound",
     "TrainerScenario",
     "get_scenarios",
@@ -58,21 +64,6 @@ __all__ = [
     "trainer_scenario_metrics",
     "trainer_scenario_run",
 ]
-
-
-class BenchFailure(Exception):
-    """A scenario whose measured invariant is violated."""
-
-
-@dataclasses.dataclass(frozen=True)
-class Metric:
-    """One gated measurement, with the reference's fields."""
-
-    value: float | int | bool
-    gate: str = "hard"          # "hard" | "warn"
-    direction: str = "exact"    # "higher" | "lower" | "exact"
-    unit: str = ""
-    tolerance: float | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -538,3 +529,30 @@ def get_scenarios() -> tuple:
     """The stock sweep: the reference's collective, trainer and blocked
     scenarios, in its order."""
     return SCENARIOS
+
+
+def case(include_trainer: bool = True, seed: int = 0, device=None):
+    """Every stock scenario (the trainer's unless ``include_trainer`` is
+    false), its metrics prefixed with its name, and the count run."""
+    metrics: dict[str, Metric] = {}
+    n_run = 0
+    for sc in get_scenarios():
+        if sc.kind == "trainer" and not include_trainer:
+            continue
+        kw = {"seed": seed} if sc.kind in ("collective", "blocked") else {}
+        sub = run_scenario(sc, device=device, **kw)
+        n_run += 1
+        for k, m in sub.items():
+            metrics[f"{sc.name}.{k}"] = m
+    metrics["n_scenarios_run"] = Metric(n_run, gate="hard", direction="higher")
+    return metrics
+
+
+bench_case(
+    "fault_scenarios",
+    tags=("robustness", "scenarios"),
+    params={
+        "smoke": {"include_trainer": True, "seed": 0},
+        "full": {"include_trainer": True, "seed": 0},
+    },
+)(case)

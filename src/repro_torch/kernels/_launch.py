@@ -9,13 +9,14 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_WIDTH", "check", "cross_split", "launch", "row_split", "strided"]
+__all__ = ["MAX_WIDTH", "check", "check_rows", "cross_split", "launch", "row_split", "strided"]
 
 MAX_WIDTH = 512          # widest Gram / product the kernels take (as the reference)
 DTYPES = (torch.float32, torch.bfloat16)
 _ROWS = 32               # rows of one streamed chunk (cqr2::kRows)
 _TARGET_CTAS = 4 * 132   # CTAs one launch aims for: four per H100 SM
 _CROSS_TARGET = 2 * 132  # (batch, split) pairs of one cross launch: two per SM
+MAX_SPLITS = 65535       # a launch's grid.y, which carries the splits
 
 
 def check(op: str, a: torch.Tensor, w: torch.Tensor | None = None) -> tuple[int, int, int, int]:
@@ -55,13 +56,43 @@ def check(op: str, a: torch.Tensor, w: torch.Tensor | None = None) -> tuple[int,
     return batch, m, n, k
 
 
-def row_split(batch: int, m: int, width: int) -> tuple[int, int]:
+def check_rows(op: str, rows_per_split: int | None) -> None:
+    """Validate an explicit row split: ``None`` or a positive multiple of
+    the streamed chunk's 32 rows."""
+    if rows_per_split is None:
+        return
+    if isinstance(rows_per_split, bool) or not isinstance(rows_per_split, int) or (
+            rows_per_split <= 0 or rows_per_split % _ROWS):
+        raise ValueError(
+            f"{op}: block_rows={rows_per_split!r} must be None or a positive multiple of "
+            f"{_ROWS} (the rows of one streamed chunk)"
+        )
+
+
+def _explicit(m: int, rows_per_split: int) -> tuple[int, int]:
+    check_rows("row split", rows_per_split)
+    rows = min(rows_per_split, -(-m // _ROWS) * _ROWS)
+    splits = -(-m // rows)
+    if splits > MAX_SPLITS:
+        raise ValueError(f"block_rows={rows_per_split} splits {m} rows {splits} ways; a launch "
+                         f"takes at most {MAX_SPLITS}")
+    return rows, splits
+
+
+def row_split(batch: int, m: int, width: int,
+              rows_per_split: int | None = None) -> tuple[int, int]:
     """``(rows_per_split, splits)`` of the Gram kernels' row split.
 
-    A pure function of ``(batch, m, width)`` — never of the card — so that
-    ``gram(q)`` and ``fused_apply_gram`` over the same rows use the same
-    split (their bitwise contract) and every card gives the same bits.
+    With no explicit ``rows_per_split``, a pure function of ``(batch, m,
+    width)`` — never of the card — so that ``gram(q)`` and
+    ``fused_apply_gram`` over the same rows use the same split (their
+    bitwise contract) and every card gives the same bits.  An explicit
+    value (a tuned or caller-chosen split: a positive multiple of 32) is
+    clamped to ``m`` rounded up to 32; the contract then holds when both
+    kernels are given the same value.
     """
+    if rows_per_split is not None:
+        return _explicit(m, rows_per_split)
     tile = 32 if width <= 32 else (64 if width <= 64 else 128)
     nt = -(-width // tile)
     pairs = nt * (nt + 1) // 2
@@ -71,18 +102,23 @@ def row_split(batch: int, m: int, width: int) -> tuple[int, int]:
     return rows_per_split, -(-m // rows_per_split)
 
 
-def cross_split(batch: int, m: int) -> tuple[int, int]:
+def cross_split(batch: int, m: int, rows_per_split: int | None = None) -> tuple[int, int]:
     """``(rows_per_split, splits)`` of the blocked-QR kernels' row split.
 
-    A pure function of ``(batch, m)``: never of the card, the split width
-    or the trailing width.  So ``trailing_update``'s lookahead S equals
-    ``panel_cross`` of the stored A_new, ``pad_cross``'s real columns equal
-    ``panel_cross``, a ragged last panel's Gram is the same whether the
-    sweep accumulated ``b`` or ``b_last`` rows of S, and the fixed-shape
-    pipeline (padded width) equals the eager driver (live width), all bit
-    for bit.  Every column tile of every split is its own CTA, so the
-    launch has at least ``batch * splits`` CTAs.
+    With no explicit ``rows_per_split``, a pure function of ``(batch, m)``:
+    never of the card, the split width or the trailing width.  So
+    ``trailing_update``'s lookahead S equals ``panel_cross`` of the stored
+    A_new, ``pad_cross``'s real columns equal ``panel_cross``, a ragged
+    last panel's Gram is the same whether the sweep accumulated ``b`` or
+    ``b_last`` rows of S, and the fixed-shape pipeline (padded width)
+    equals the eager driver (live width), all bit for bit.  An explicit
+    value (a positive multiple of 32, clamped to ``m`` rounded up to 32)
+    keeps those contracts when every kernel of the sweep is given it.
+    Every column tile of every split is its own CTA, so the launch has at
+    least ``batch * splits`` CTAs.
     """
+    if rows_per_split is not None:
+        return _explicit(m, rows_per_split)
     chunks = -(-m // _ROWS)
     splits = max(1, min(chunks, -(-_CROSS_TARGET // batch)))
     rows_per_split = -(-chunks // splits) * _ROWS

@@ -18,6 +18,13 @@ versions (:mod:`repro_torch.kernels.ref`), the counterpart of the
 reference's jnp/XLA route.  Every wrapper takes arbitrary leading batch
 dims: the (P, m_local, n) stack of all simulated ranks is one launch.
 
+On the kernel route each wrapper resolves its row split per call
+(:func:`_resolve_br`, the reference's): an explicit ``block_rows``, else
+the installed autotune winner for the shape class
+(:mod:`repro_torch.kernels.autotune`; ``fused_apply_gram`` takes
+``gram``'s, ``panel_cross`` and ``pad_cross`` take ``trailing_update``'s),
+else the kernel's own shape-derived split.
+
 The small-matrix steps stay library calls, as in the reference: the
 Cholesky (``torch.linalg.cholesky_ex``) and the triangular inverse
 (``torch.linalg.solve_triangular``).
@@ -26,9 +33,11 @@ from __future__ import annotations
 
 import torch
 
+from . import autotune as _autotune
 from . import dispatch as _dispatch
 from . import ref as _ref
 from . import traffic as _traffic
+from .backend import backend_of
 from .apply_right import apply_right as _apply_kernel
 from .combine_gram import combine_gram as _combine_kernel
 from .fused_apply_gram import fused_apply_gram as _fused_kernel
@@ -62,20 +71,38 @@ def _nbytes(x: torch.Tensor) -> int:
 _PLAIN_TRACED = frozenset({"trailing_update", "panel_cross", "pad_cross"})
 
 
+def _resolve_br(op: str, m: int, n: int, a: torch.Tensor, block_rows) -> int | None:
+    """Resolve the row split at the Python level, per call: explicit >
+    installed winner for the shape class > ``None`` (the kernel's own
+    split).  ``"auto"`` asks for the kernel's own split whatever is
+    installed (the eager blocked driver's untuned sweeps).  The resolved
+    int keys the ``kernel:<op>`` trace, so installing a table retraces its
+    shape classes only."""
+    if block_rows == "auto":
+        return None
+    return _autotune.resolve_block_rows(op, m, n, a.dtype, explicit=block_rows,
+                                        backend=backend_of(a.device))
+
+
 def _trace(op: str, arrays, statics: tuple = (), *, use_pallas: bool,
-           block_rows="auto", lead: tuple | None = None) -> int:
+           block_rows=None, lead: tuple | None = None, wrapper: bool = True) -> int:
     """Note the reference's ``kernel:<op>`` trace for this call's signature;
     returns the traces noted (0 or 1).
 
     The reference's kernel is a jit vmapped over the leading dims, so on the
     kernel route the signature is each operand's last two dims and dtype,
-    the statics and the ``block_rows`` the kernel is passed (``"auto"``: a
-    wrapper's per-call resolution; a pipeline passes its config's).  On the
+    the statics and the ``block_rows`` the kernel is passed: the resolved
+    int, or for the untuned split ``"auto"`` from a wrapper (the reference's
+    wrapper passes its default height, a function of the shape) and
+    ``None`` from a pipeline (``wrapper=False``: the reference's scan
+    passes its config's ``block_rows``, ``None`` untuned).  On the
     plain route the reference's jit sees whole operands; ``lead`` replaces
     their leading dims inside a program batched over matrices, whose batch
     axis the reference's vmap hides (the pipeline notes its sweeps so,
     :func:`repro_torch.qr.blocked._note_sweep_traces`)."""
     if use_pallas:
+        if block_rows is None and wrapper:
+            block_rows = "auto"
         sig = ("kernel", tuple((tuple(t.shape[-2:]), t.dtype) for t in arrays), statics,
                block_rows)
     elif op in _PLAIN_TRACED:
@@ -95,30 +122,39 @@ def _note(op: str, traces: int, **traffic_kw) -> None:
 
 # -- kernel entry points (batched, kernel/plain switchable) ------------------
 
-def gram(a, *, use_pallas: bool = False):
-    traced = _trace("gram", (a,), use_pallas=use_pallas)
-    out = _gram_kernel(a) if use_pallas else _ref.gram(a)
+def gram(a, *, use_pallas: bool = False, block_rows: int | None = None):
+    if use_pallas:
+        block_rows = _resolve_br("gram", *a.shape[-2:], a, block_rows)
+    traced = _trace("gram", (a,), use_pallas=use_pallas, block_rows=block_rows)
+    out = _gram_kernel(a, block_rows=block_rows) if use_pallas else _ref.gram(a)
     _note("gram", traced, sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
-def apply_right(a, w, *, use_pallas: bool = False):
-    traced = _trace("apply_right", (a, w), use_pallas=use_pallas)
-    out = _apply_kernel(a, w) if use_pallas else _ref.apply_right(a, w)
+def apply_right(a, w, *, use_pallas: bool = False, block_rows: int | None = None):
+    if use_pallas:
+        block_rows = _resolve_br("apply_right", *a.shape[-2:], a, block_rows)
+    traced = _trace("apply_right", (a, w), use_pallas=use_pallas, block_rows=block_rows)
+    out = _apply_kernel(a, w, block_rows=block_rows) if use_pallas else _ref.apply_right(a, w)
     _note("apply_right", traced, sweeps=1, read_bytes=_nbytes(a) + _nbytes(w),
           write_bytes=_nbytes(out))
     return out
 
 
-def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True):
+def fused_apply_gram(a, w, *, use_pallas: bool = False, want_q: bool = True,
+                     block_rows: int | None = None):
     """One tall-operand sweep: ``Q = A @ W`` and ``G' = QᵀQ`` together.
 
     Returns ``(q, g)`` — or just ``g`` when ``want_q=False``, in which case
-    the applied panel never reaches device memory.
+    the applied panel never reaches device memory.  The split resolves at
+    (m, k), the shape of the Q whose Gram it forms, so it is ``gram(q)``'s.
     """
-    traced = _trace("fused_apply_gram", (a, w), (want_q,), use_pallas=use_pallas)
     if use_pallas:
-        out = _fused_kernel(a, w, want_q=want_q)
+        block_rows = _resolve_br("fused_apply_gram", a.shape[-2], w.shape[-1], a, block_rows)
+    traced = _trace("fused_apply_gram", (a, w), (want_q,), use_pallas=use_pallas,
+                    block_rows=block_rows)
+    if use_pallas:
+        out = _fused_kernel(a, w, want_q=want_q, block_rows=block_rows)
     else:
         q, g = _ref.fused_apply_gram(a, w)
         out = (q, g) if want_q else g
@@ -147,9 +183,9 @@ def combine_gram(r1, r2, *, use_pallas: bool = False):
 # kernel wrappers either way.
 
 def _trailing_update_raw(a, q, w, *, next_width: int = 0, use_pallas: bool = False,
-                         out=None):
+                         out=None, block_rows: int | None = None):
     if use_pallas:
-        return _trailing_kernel(a, q, w, next_width=next_width, out=out)
+        return _trailing_kernel(a, q, w, next_width=next_width, out=out, block_rows=block_rows)
     res = _ref.trailing_update(a, q, w, next_width=next_width)
     if out is None:
         return res
@@ -157,24 +193,31 @@ def _trailing_update_raw(a, q, w, *, next_width: int = 0, use_pallas: bool = Fal
     return (out, res[1]) if next_width else out
 
 
-def _panel_cross_raw(a, *, split: int, use_pallas: bool = False):
+def _panel_cross_raw(a, *, split: int, use_pallas: bool = False,
+                     block_rows: int | None = None):
     if use_pallas:
-        return _panel_cross_kernel(a, split=split)
+        return _panel_cross_kernel(a, split=split, block_rows=block_rows)
     return _ref.panel_cross(a, split=split)
 
 
-def _pad_cross_raw(a, *, split: int, out_width: int, use_pallas: bool = False):
+def _pad_cross_raw(a, *, split: int, out_width: int, use_pallas: bool = False,
+                   block_rows: int | None = None):
     if use_pallas:
-        return _pad_cross_kernel(a, split=split, out_width=out_width)
+        return _pad_cross_kernel(a, split=split, out_width=out_width, block_rows=block_rows)
     return _ref.pad_cross(a, split=split, out_width=out_width)
 
 
-def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False):
+def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False,
+                    block_rows: int | None = None):
     """Blocked-QR trailing update ``A − Q W`` in **one** trailing-block
     sweep, with the next panel's cross-Gram ``S`` accumulated in the same
     pass when ``next_width > 0``.  Returns ``a_new`` — or ``(a_new, s)``."""
-    traced = _trace("trailing_update", (a, q, w), (next_width,), use_pallas=use_pallas)
-    out = _trailing_update_raw(a, q, w, next_width=next_width, use_pallas=use_pallas)
+    if use_pallas:
+        block_rows = _resolve_br("trailing_update", *a.shape[-2:], a, block_rows)
+    traced = _trace("trailing_update", (a, q, w), (next_width,), use_pallas=use_pallas,
+                    block_rows=block_rows)
+    out = _trailing_update_raw(a, q, w, next_width=next_width, use_pallas=use_pallas,
+                               block_rows=block_rows)
     a_new = out[0] if next_width else out
     s_bytes = _nbytes(out[1]) if next_width else 0
     _note("trailing_update", traced, sweeps=1, read_bytes=_nbytes(a) + _nbytes(q) + _nbytes(w),
@@ -182,20 +225,28 @@ def trailing_update(a, q, w, *, next_width: int = 0, use_pallas: bool = False):
     return out
 
 
-def panel_cross(a, *, split: int, use_pallas: bool = False):
+def panel_cross(a, *, split: int, use_pallas: bool = False, block_rows: int | None = None):
     """Pipeline prime for blocked QR: ``S = A[:, :split]ᵀ A`` in one sweep."""
-    traced = _trace("panel_cross", (a,), (split,), use_pallas=use_pallas)
-    out = _panel_cross_raw(a, split=split, use_pallas=use_pallas)
+    if use_pallas:
+        block_rows = _resolve_br("panel_cross", *a.shape[-2:], a, block_rows)
+    traced = _trace("panel_cross", (a,), (split,), use_pallas=use_pallas,
+                    block_rows=block_rows)
+    out = _panel_cross_raw(a, split=split, use_pallas=use_pallas, block_rows=block_rows)
     _note("panel_cross", traced, sweeps=1, read_bytes=_nbytes(a), write_bytes=_nbytes(out))
     return out
 
 
-def pad_cross(a, *, split: int, out_width: int, use_pallas: bool = False):
+def pad_cross(a, *, split: int, out_width: int, use_pallas: bool = False,
+              block_rows: int | None = None):
     """Fixed-shape pipeline prime: widen A to the padded trailing width and
     compute ``S = A[:, :split]ᵀ A`` in the same single sweep.  Returns
     ``(a_pad, s)``."""
-    traced = _trace("pad_cross", (a,), (split, out_width), use_pallas=use_pallas)
-    out = _pad_cross_raw(a, split=split, out_width=out_width, use_pallas=use_pallas)
+    if use_pallas:
+        block_rows = _resolve_br("pad_cross", *a.shape[-2:], a, block_rows)
+    traced = _trace("pad_cross", (a,), (split, out_width), use_pallas=use_pallas,
+                    block_rows=block_rows)
+    out = _pad_cross_raw(a, split=split, out_width=out_width, use_pallas=use_pallas,
+                         block_rows=block_rows)
     _note("pad_cross", traced, sweeps=1, read_bytes=_nbytes(a),
           write_bytes=_nbytes(out[0]) + _nbytes(out[1]))
     return out

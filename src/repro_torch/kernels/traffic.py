@@ -65,6 +65,10 @@ class KernelTraffic:
         return sum(r["write_bytes"] for r in self.records)
 
     @property
+    def total_bytes(self) -> int:
+        return self.read_bytes + self.write_bytes
+
+    @property
     def dispatches(self) -> int:
         """Programs run by the recorded calls (one a kernel-op wrapper, one
         for a whole pipelined factorization)."""

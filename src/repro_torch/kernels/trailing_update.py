@@ -15,6 +15,10 @@ split is :func:`~repro_torch.kernels._launch.cross_split`'s, a function of
 :func:`panel_cross` of the stored A_new bit for bit, and each result's real
 columns independent of extra zero columns.
 
+Each takes ``block_rows`` (a positive multiple of 32, or ``None`` for
+``cross_split``'s shape-derived split): the contracts above hold between
+calls given the same value, which is why the three share one tuned entry.
+
 A CUDA tensor launches the kernel — the whole (…, m, ·) stack in one
 launch — or raises; a CPU tensor takes the plain version in
 :mod:`repro_torch.kernels.ref`.
@@ -65,7 +69,8 @@ def _is_bf16(a: torch.Tensor) -> int:
 
 
 def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
-                    next_width: int = 0, out: torch.Tensor | None = None):
+                    next_width: int = 0, out: torch.Tensor | None = None,
+                    block_rows: int | None = None):
     """One sweep of ``A_new = A − Q W`` (f32 arithmetic, A's dtype).
 
     a: (…, m, n_t), rows may be strided; q: (…, m, b); w: (…, b, n_t),
@@ -85,6 +90,7 @@ def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"{op}: next_width={next_width} must be in [0, n_t={nt}]")
     if out is not None:
         _like(op, "out", out, a, a.shape)
+    _launch.check_rows(op, block_rows)
     if a.device.type == "cpu":
         res = ref.trailing_update(a, q, w, next_width=next_width)
         if out is None:
@@ -98,7 +104,7 @@ def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
     if out is None:
         out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     o_bs, ldo = _launch.strided(op, "out", out)
-    rows_per_split, splits = _launch.cross_split(batch, m)
+    rows_per_split, splits = _launch.cross_split(batch, m, block_rows)
     part = s = None
     if next_width:
         part = torch.empty((batch, splits, next_width, nt), dtype=torch.float32, device=a.device)
@@ -112,17 +118,18 @@ def trailing_update(a: torch.Tensor, q: torch.Tensor, w: torch.Tensor, *,
     return (out, s) if next_width else out
 
 
-def panel_cross(a: torch.Tensor, *, split: int) -> torch.Tensor:
+def panel_cross(a: torch.Tensor, *, split: int, block_rows: int | None = None) -> torch.Tensor:
     """``S = A[:, :split]ᵀ A`` in one sweep, float32.  a: (…, m, n), rows
     may be strided → (…, split, n)."""
     op = "panel_cross"
     batch, m, n = _tall(op, a)
     if not 0 < split <= n:
         raise ValueError(f"{op}: split={split} must be in [1, n={n}]")
+    _launch.check_rows(op, block_rows)
     if a.device.type == "cpu":
         return ref.panel_cross(a, split=split)
     a_bs, lda = _launch.strided(op, "a", a)
-    rows_per_split, splits = _launch.cross_split(batch, m)
+    rows_per_split, splits = _launch.cross_split(batch, m, block_rows)
     part = torch.empty((batch, splits, split, n), dtype=torch.float32, device=a.device)
     s = torch.empty(a.shape[:-2] + (split, n), dtype=torch.float32, device=a.device)
     _launch.launch(
@@ -133,7 +140,7 @@ def panel_cross(a: torch.Tensor, *, split: int) -> torch.Tensor:
     return s
 
 
-def pad_cross(a: torch.Tensor, *, split: int, out_width: int):
+def pad_cross(a: torch.Tensor, *, split: int, out_width: int, block_rows: int | None = None):
     """Widen A to ``out_width`` with exact-zero columns and compute
     ``S = A_pad[:, :split]ᵀ A_pad`` in the same sweep.  a: (…, m, n), rows
     may be strided → ``(a_pad (…, m, out_width) in a's dtype,
@@ -145,10 +152,11 @@ def pad_cross(a: torch.Tensor, *, split: int, out_width: int):
             f"{op}: need 0 < split={split} <= n={n} <= out_width={out_width} "
             f"<= {_launch.MAX_WIDTH}"
         )
+    _launch.check_rows(op, block_rows)
     if a.device.type == "cpu":
         return ref.pad_cross(a, split=split, out_width=out_width)
     a_bs, lda = _launch.strided(op, "a", a)
-    rows_per_split, splits = _launch.cross_split(batch, m)
+    rows_per_split, splits = _launch.cross_split(batch, m, block_rows)
     a_pad = torch.empty(a.shape[:-1] + (out_width,), dtype=a.dtype, device=a.device)
     part = torch.empty((batch, splits, split, out_width), dtype=torch.float32, device=a.device)
     s = torch.empty(a.shape[:-2] + (split, out_width), dtype=torch.float32, device=a.device)

@@ -108,10 +108,14 @@ class QRConfig:
     runs no kernel, and to ``"chol"`` (the Cholesky of the lookahead Gram)
     for the blocked QR; ``"cqr2_pallas"`` runs CholeskyQR2 on the Hopper
     kernels.  ``use_pallas`` puts the blocked QR's trailing sweeps and Q's
-    polish Gram on the Hopper kernels; ``pipeline``, ``fuse`` and
-    ``recover`` steer the blocked driver.  The TSQR route reads none of
-    those four, and ``interpret`` and ``block_rows`` are only validated, so
-    that configs transfer from the reference.
+    polish Gram on the Hopper kernels; ``pipeline``, ``fuse``, ``recover``
+    and ``block_rows`` steer the blocked driver.  ``block_rows`` is the row
+    split of its sweeps (a positive multiple of 32 on the kernels, which
+    raise otherwise; ``None``: the installed autotune winner for the
+    geometry, else the kernels' own split).  The TSQR route reads none of
+    those, and its kernels take the installed winners per call, as the
+    reference's do; ``interpret`` is only validated, so that configs
+    transfer from the reference.
     """
 
     panel_width: int | None = None

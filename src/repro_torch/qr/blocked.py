@@ -69,9 +69,11 @@ from repro_torch.collective.comm import Comm, SimComm
 from repro_torch.collective.engine import ft_allreduce, recover_payload
 from repro_torch.collective.faults import FaultSpec, within_tolerance
 from repro_torch.collective.plan import Plan, make_plan
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import traffic as _traffic
+from repro_torch.kernels.backend import backend_of
 
 from .api import Fuse, Pipeline, QRConfig, Recover, Redundancy
 from .panel import FUSED_PANEL_COMBINER, PanelFactorizer, chol_r
@@ -305,9 +307,14 @@ def _assemble(rows, r_last, n: int, b: int, like):
 
 def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple[int, ...],
                   pf: PanelFactorizer, *, local_r: str, compute_q: bool, use_pallas: bool,
-                  world: Comm | None = None):
+                  world: Comm | None = None, block_rows: int | None = None):
     """The eager driver.  ``world`` (the P + parity ranks) makes every
-    reduction a coded one; the sweeps, Q and the polish stay on ``comm``."""
+    reduction a coded one; the sweeps, Q and the polish stay on ``comm``.
+    Every sweep takes ``block_rows`` (the config's, resolved by
+    :func:`_tuned_config`); ``None`` pins the kernels' untuned split
+    (``"auto"``) rather than a per-call lookup, so each sweep sums the rows
+    the pipeline's would, whatever table is installed."""
+    br = "auto" if block_rows is None else block_rows
     n = a.shape[-1]
     n_pad = widths[0] * len(widths)
     r_full = torch.zeros(a.shape[:-2] + (n, n), dtype=torch.float32, device=a.device)
@@ -316,7 +323,7 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
     detected = torch.zeros_like(valid) if coded else None
     q_cols = []
     trail = a
-    s = kops.panel_cross(a, split=widths[0], use_pallas=use_pallas)      # prime
+    s = kops.panel_cross(a, split=widths[0], use_pallas=use_pallas, block_rows=br)  # prime
 
     def coded_reduce(payload, plan, combiner):
         p = comm.n_ranks
@@ -401,7 +408,7 @@ def _blocked_body(a, comm: Comm, reports: tuple[PanelReport, ...], widths: tuple
         # -- phase 4: one-sweep trailing update + lookahead -----------------
         b2 = widths[rep.panel + 1]
         trail, s = kops.trailing_update(trail[..., :, b:], q_k, w.to(a.dtype).contiguous(),
-                                        next_width=b2, use_pallas=use_pallas)
+                                        next_width=b2, use_pallas=use_pallas, block_rows=br)
         nxt = reports[rep.panel + 1]
         if nxt.fused:
             # the next panel's butterfly goes out as soon as the sweep lands
@@ -448,8 +455,9 @@ class _ShiftedWork:
     is the caller's input.
     """
 
-    def __init__(self, awork, b: int, use_pallas: bool, owned: bool):
+    def __init__(self, awork, b: int, use_pallas: bool, owned: bool, block_rows: int | None):
         self.awork, self.b, self.use_pallas = awork, b, use_pallas
+        self.block_rows = block_rows
         self.owned = owned
         self.spare = None
 
@@ -462,7 +470,7 @@ class _ShiftedWork:
             out[..., :, n_pad - b:].zero_()
         _, s_new = kops._trailing_update_raw(
             awork[..., :, b:], q_k, w.to(awork.dtype).contiguous(), next_width=b,
-            use_pallas=self.use_pallas, out=out[..., :, :n_pad - b])
+            use_pallas=self.use_pallas, out=out[..., :, :n_pad - b], block_rows=self.block_rows)
         if self.owned:
             awork[..., :, n_pad - b:].zero_()
             self.spare = awork
@@ -470,25 +478,27 @@ class _ShiftedWork:
         return out, torch.cat([s_new, s_new.new_zeros(s_new.shape[:-1] + (b,))], dim=-1)
 
 
-def _prime(a, b: int, n_pad: int, use_pallas: bool):
+def _prime(a, b: int, n_pad: int, use_pallas: bool, block_rows: int | None):
     """Padded working copy (only when ``n < n_pad``) and panel 0's lookahead,
     in one sweep.  Returns ``(awork, s, owned)``."""
+    kw = dict(use_pallas=use_pallas, block_rows=block_rows)
     if n_pad == a.shape[-1]:
-        return a, kops._panel_cross_raw(a, split=b, use_pallas=use_pallas), False
-    awork, s = kops._pad_cross_raw(a, split=b, out_width=n_pad, use_pallas=use_pallas)
+        return a, kops._panel_cross_raw(a, split=b, **kw), False
+    awork, s = kops._pad_cross_raw(a, split=b, out_width=n_pad, **kw)
     return awork, s, True
 
 
 def _pipeline_body(a, comm: Comm, plan: Plan, widths: tuple[int, ...], pf: PanelFactorizer, *,
-                   local_r: str, compute_q: bool, use_pallas: bool, fused: bool = True):
+                   local_r: str, compute_q: bool, use_pallas: bool, fused: bool = True,
+                   block_rows: int | None = None):
     """The fixed-shape driver (``plan`` is the one fault-free plan every
     collective shares).  ``fused`` runs the one-butterfly-per-panel schedule
     with each reduction issued one stage ahead; otherwise the split
     two-butterfly schedule.  Both equal the eager driver bit for bit."""
     b, k_panels, b_last = widths[0], len(widths), widths[-1]
     n = a.shape[-1]
-    awork, s, owned = _prime(a, b, b * k_panels, use_pallas)
-    work = _ShiftedWork(awork, b, use_pallas, owned)
+    awork, s, owned = _prime(a, b, b * k_panels, use_pallas, block_rows)
+    work = _ShiftedWork(awork, b, use_pallas, owned, block_rows)
     rows, qs = [], []
     if not fused:
         for _ in range(k_panels - 1):
@@ -654,7 +664,8 @@ def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, p: int) -> None:
     def like(*shape):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    kw = dict(use_pallas=canon.use_pallas, block_rows=canon.block_rows, lead=(p,))
+    kw = dict(use_pallas=canon.use_pallas, block_rows=canon.block_rows, lead=(p,),
+              wrapper=False)
     if n_pad == n:
         kops._trace("panel_cross", (like(m, n),), (b,), **kw)
     else:
@@ -662,6 +673,20 @@ def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, p: int) -> None:
     if k_panels > 1:
         kops._trace("trailing_update", (like(m, n_pad - b), like(m, b), like(b, n_pad - b)),
                     (b,), **kw)
+
+
+def _tuned_config(config: QRConfig, m_local: int, n: int, dtype, device) -> QRConfig:
+    """Resolve ``block_rows=None`` to the installed autotune winner for this
+    geometry before the config keys a cached program (the reference's
+    ``_tuned_config``).  The ``trailing_update`` entry keys the lookup: it
+    is the body's dominant sweep and its split is the prime's.  Installing
+    a table then re-records only the affected geometries; with no entry
+    ``block_rows`` stays None (the kernels' untuned split)."""
+    if not config.use_pallas or config.block_rows is not None:
+        return config
+    br = _autotune.resolve_block_rows("trailing_update", m_local, n, dtype,
+                                      backend=backend_of(device))
+    return config if br is None else dataclasses.replace(config, block_rows=br)
 
 
 def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
@@ -677,13 +702,13 @@ def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
     comm = SimComm(p, a.device)
     plan = make_plan(config.variant, p)
     fused = config.fuse is not Fuse.OFF
-    canon = config.canonical()
+    canon = _tuned_config(config, a.shape[-2], a.shape[-1], a.dtype, a.device).canonical()
 
     def body(a):
         x = a.transpose(0, 1).contiguous() if batched else a
         r, valid, q = _pipeline_body(x, comm, plan, widths, pf, local_r=canon.local_r,
                                      compute_q=canon.compute_q, use_pallas=canon.use_pallas,
-                                     fused=fused)
+                                     fused=fused, block_rows=canon.block_rows)
         if not batched:
             return r, valid, q
         bsz = a.shape[0]
@@ -713,10 +738,12 @@ def _factorize_sim(a_blocks: torch.Tensor, config: QRConfig, *,
     if not coded and _resolve_pipeline(config.pipeline, reports):
         r, valid, q = _run_pipeline(a_blocks, widths, reports, pf, config)
     else:
+        eager_cfg = _tuned_config(config, m_local, n, a_blocks.dtype, a_blocks.device)
         r, valid, q, detected = _blocked_body(
             a_blocks, comm, reports, widths, pf, local_r=config.resolved_local_r(),
             compute_q=config.compute_q, use_pallas=config.use_pallas,
             world=SimComm(p + config.parity, a_blocks.device) if coded else None,
+            block_rows=eager_cfg.block_rows if config.use_pallas else None,
         )
         _note_eager_reductions("blocked_qr_sim", reports, widths, n, pf)
     return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,

@@ -58,12 +58,22 @@ class CostModel:
 
     @classmethod
     def tuned(cls, **overrides) -> "CostModel":
-        """The reference feeds this from its installed autotune table's
-        measured machine constants.  The port has no tuner until ROADMAP
-        A.14, so this is ``CostModel(**overrides)``: the reference's result
-        with no table installed.  A caller with measured constants passes
-        them as overrides."""
-        return cls(**overrides)
+        """A model fed from the installed autotune table's measured machine
+        constants (the copy bandwidth and f32 rate of the tuner's probes,
+        :func:`repro_torch.kernels.autotune.machine_constants`) instead of
+        the static defaults.  With no table installed this is exactly
+        ``CostModel()``.  Scheduling knobs keep their defaults unless
+        overridden."""
+        from repro_torch.kernels import autotune as _autotune
+
+        mc = _autotune.machine_constants() or {}
+        kw = {}
+        if mc.get("mem_bw_bytes_per_s"):
+            kw["mem_bw_bytes_per_s"] = float(mc["mem_bw_bytes_per_s"])
+        if mc.get("flops_per_s"):
+            kw["flops_per_s"] = float(mc["flops_per_s"])
+        kw.update(overrides)
+        return cls(**kw)
 
 
 @dataclasses.dataclass(frozen=True)
