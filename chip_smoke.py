@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Ten paths, each driven with the launch counts set to 0 just before it and
-read just after:
+Eleven paths, each driven with the launch counts set to 0 just before it
+and read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
   P = 8 ranks, factored by fault-tolerant TSQR whose local QR is CholeskyQR2
@@ -50,8 +50,14 @@ read just after:
   gradient combine on ``ft_allreduce``; the three stock trainer fault
   scenarios (REBUILD from disk and from the buddy store, SHRINK then
   rejoin) and PowerSGD, OrthoSGD and the low-rank optimizer at its widths
-  cut to 2 layers.  The reference's trainer reaches no ``pallas_call``;
-  the launch counts stay 0.
+  cut to 2 layers, and one whisper-medium step in bf16 on f32 frames.  The
+  reference's trainer reaches no ``pallas_call``; the launch counts stay 0.
+* **The bench harness** (``repro_torch.bench``): the full tier of all
+  sixteen cases through its ``main``, one case a call with the launches
+  read around each (``general_qr``, ``dispatch``, ``overlap`` and
+  ``serving`` run the blocked QR on the kernels), the blocked QR's
+  factorization latency at general_full through the ``dispatch`` case's
+  ``run``, and the retrace guard.
 
 All P ranks live on the one card with a leading (P,) axis, so each sweep is
 one kernel launch for every rank.
@@ -147,7 +153,9 @@ Phases (each raises on failure; the script then exits non-zero):
    one warm step of that size profiled; PowerSGD, OrthoSGD and low-rank 2
    steps each under BLANK, losses finite; one layer in f32 trained 3 steps
    on the card and on the CPU from the same weights (losses within 1e-6
-   relative, the parameters within 1e-3 of max|param|);
+   relative, the parameters within 1e-3 of max|param|); one whisper-medium
+   step in bf16 at its published widths, one encoder and one decoder layer,
+   on the f32 frames the data pipeline builds (ROADMAP C.11), loss finite;
 9. profile one call of each main path, time each kernel (CUDA events,
    median over repeats) beside its plain version, one PyTorch library call
    computing the same function where there is one, and its bound (``gram``
@@ -167,7 +175,17 @@ Phases (each raises on failure; the script then exits non-zero):
    table's constants; after ``clear()``, R equal to the untuned run's bit
    for bit; then ``python -m repro_torch.bench run --tier smoke`` in
    process, every case ``ok``.  Each winner is printed beside the untuned
-   split with both times.
+   split with both times.  Then the full tier of all sixteen cases, one
+   ``--only`` call each through the same ``main``, every case ``ok``, a
+   ``[bench]`` line a case with its status, metric count, time and the port
+   kernels' launches read around it (``general_qr``, ``dispatch``,
+   ``overlap`` and ``serving`` must launch ``trailing_update``,
+   ``panel_cross`` or ``pad_cross``, and ``gram``); the ``dispatch``
+   case's ``run`` at general_full (8 × 2^17 × 512, panels of 128, batch 2)
+   held to the case's gates and to pipeline ≡ eager bit for bit, its
+   ``time_pipeline_p50_us`` and ``time_eager_p50_us`` printed beside
+   PERF.md §5's profile of one call; the retrace guard with 0 failures;
+   the phase's time, and the whole script's.
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
@@ -271,6 +289,16 @@ AUTOTUNE_SHAPES = {HEADLINE: MAIN_SHAPES[HEADLINE], "general_full": BLOCKED_SHAP
 AUTOTUNE_DIR = Path("build") / "autotune"
 AUTOTUNE_REPS = 5
 BENCH_OUT = Path("build") / "bench_torch" / "smoke.json"
+BENCH_FULL_DIR = Path("build") / "bench_torch" / "full"
+# the cases whose blocked QR runs on the kernels (use_pallas=True): each must
+# launch trailing_update, panel_cross or pad_cross, and gram (each panel's
+# Q polish)
+BENCH_BLOCKED = ("general_qr", "dispatch", "overlap", "serving")
+# the factorization latency at general_full through the dispatch case's run
+# (batch 2: the batched input stays at 4 GiB); PERF.md §5's profile of one
+# call read 103.4 ms (pipeline) and 95.9 ms (eager)
+LATENCY_RUN = dict(p=P, m_local=1 << 17, n=512, panel_width=PANEL, batch=2)
+LATENCY_PROFILED_MS = {"pipeline": 103.4, "eager": 95.9}
 TUNED_SPLIT = 2048     # an explicit QRConfig(block_rows=...) the blocked QR must reach
 # the replay phase's shapes beside general_full and general_ragged: the
 # batched TSQR of B = 4 and B = 1 paper_fig-sized stacks (paper_fig's call
@@ -373,6 +401,15 @@ MAMBA_TRAIN = ["--arch", "mamba2-2.7b", "--full", "--mesh", "4x1", "--seq-len", 
                "--global-batch", "8", "--on-failure", "blank", "--fail", "2:1",
                "--recover", "4:1", "--steps", "6"]
 MAMBA_TRAIN_LAYERS = 23
+# whisper-medium in bf16 on the f32 frames SyntheticCorpus builds (ROADMAP
+# C.11): one step through the launcher at its published widths (d_model
+# 1024, 16 heads of 64, d_ff 4096, 1500 frames, vocab 51 865), its depth cut
+# to WHISPER_TRAIN_LAYERS encoder and decoder layers, one replica.  The
+# corpus draws a row's frames from its first enc_frames token positions, so
+# the rows are 1500 tokens long.
+WHISPER_TRAIN = ["--arch", "whisper-medium", "--full", "--seq-len", "1500",
+                 "--global-batch", "2", "--steps", "1", "--ckpt-every", "0"]
+WHISPER_TRAIN_LAYERS = 1
 # The stock trainer scenarios, the other optimizers and the step profile at
 # olmo-1b's widths cut to 2 layers (2.37 GB of bf16 weights and f32 moments
 # a disk checkpoint), 2048-token rows; the expected train_step counts.
@@ -437,6 +474,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_script = time.perf_counter()
     smoke = Smoke(torch)
     smoke.build()
     card = smoke.card()
@@ -457,6 +495,7 @@ def main() -> int:
     smoke.blocked_timings()
     smoke.combine_gram_timing()
     smoke.autotune_path()
+    log(f"[smoke] the whole script took {time.perf_counter() - t_script:.1f} s")
     log(json.dumps({"kernels": smoke.kernel_rows()}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -1047,6 +1086,7 @@ class Smoke:
 
     def autotune_path(self) -> None:
         torch = self.torch
+        from repro_torch import replay
         from repro_torch.bench.__main__ import main as bench_main
         from repro_torch.bench.cases import autotune as tune_case
         from repro_torch.kernels import _launch
@@ -1143,8 +1183,12 @@ class Smoke:
 
         _launch.cross_split = spy
         try:
-            explicit = factorize(blk, dataclasses.replace(cfgs["blocked"][1],
-                                                          block_rows=TUNED_SPLIT)).r
+            # issued eagerly: when the tuner's winner for this geometry is
+            # TUNED_SPLIT, the tuned run above captured the same program,
+            # whose replay calls no kernel wrapper for the spy to see
+            with replay.eager():
+                explicit = factorize(blk, dataclasses.replace(cfgs["blocked"][1],
+                                                              block_rows=TUNED_SPLIT)).r
             torch.cuda.synchronize()
         finally:
             _launch.cross_split = real
@@ -1183,8 +1227,91 @@ class Smoke:
         check(rc == 0 and not bad, f"bench smoke tier: rc {rc}, not ok: {bad}")
         check(not at.installed(), "the bench's autotune case left a table installed")
         log(f"[bench] smoke tier: {len(bench['cases'])} cases ok in "
-            f"{time.perf_counter() - t0:.1f} s on {bench['card']}; phase 12 took "
-            f"{time.perf_counter() - t_phase:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s on {bench['card']}")
+        self.bench_full()
+        self.latency()
+        self.retrace_guard()
+        log(f"[bench] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+    def bench_full(self) -> None:
+        """The full tier of every registered case through ``python -m
+        repro_torch.bench run --tier full`` (its ``main``), one case a call
+        so that the port kernels' launches are read around each; the cases
+        whose blocked QR runs on the kernels must launch them."""
+        from repro_torch.bench.__main__ import main as bench_main
+        from repro_torch.bench.registry import REGISTRY
+
+        counts = self.dispatch.launches
+        t0 = time.perf_counter()
+        names = sorted(REGISTRY)
+        check(len(names) == 16, f"the bench registry holds {len(names)} cases, not 16")
+        card = None
+        for name in names:
+            out = BENCH_FULL_DIR / f"{name}.json"
+            self.torch.cuda.synchronize()
+            counts.reset()
+            t_case = time.perf_counter()
+            rc = bench_main(["run", "--tier", "full", "--only", name, "--out", str(out)])
+            self.torch.cuda.synchronize()
+            case_s = time.perf_counter() - t_case
+            made = {k: v for k, v in counts.as_dict().items() if v}
+            doc = json.loads(out.read_text())
+            card, c = doc["card"], doc["cases"][name]
+            log(f"[bench] full {name}: {c['status']}, {len(c.get('metrics', {}))} metrics, "
+                f"{case_s:.1f} s; port-kernel launches {made} {c.get('error', '')}")
+            check(rc == 0 and c["status"] == "ok", f"bench full tier {name}: rc {rc}, {c}")
+            if name in BENCH_BLOCKED:
+                check(made.get("trailing_update") and made.get("gram")
+                      and (made.get("panel_cross") or made.get("pad_cross")),
+                      f"bench {name}: the blocked QR did not launch trailing_update, "
+                      f"panel_cross or pad_cross, and gram: {made}")
+            self.torch.cuda.empty_cache()
+        log(f"[bench] full tier: {len(names)} cases ok in {time.perf_counter() - t0:.1f} s "
+            f"on {card}")
+
+    def latency(self) -> None:
+        """The blocked QR's factorization latency at general_full through
+        the dispatch case's ``run``, held to the case's gates and to
+        pipeline ≡ eager bit for bit."""
+        from repro_torch.bench.cases import dispatch as case
+
+        counts = self.dispatch.launches
+        counts.reset()
+        t0 = time.perf_counter()
+        rows = case.run(**LATENCY_RUN)
+        self.torch.cuda.synchronize()
+        case.check(rows)
+        shape = f"{LATENCY_RUN['p']} x {LATENCY_RUN['m_local']} x {LATENCY_RUN['n']}"
+        log(f"[latency] dispatch.run at {shape}, panels of {LATENCY_RUN['panel_width']} "
+            f"(K = {rows['n_panels']}), batch {rows['batch']} on {self.card_name}: "
+            f"time_pipeline_p50_us {rows['time_pipeline_p50_us']:.1f} (PERF.md §5's profile "
+            f"of one call: {LATENCY_PROFILED_MS['pipeline']} ms), time_eager_p50_us "
+            f"{rows['time_eager_p50_us']:.1f} (PERF.md §5: {LATENCY_PROFILED_MS['eager']} ms); "
+            f"traces {rows['traces_first']} then {rows['traces_second']}, dispatches a call "
+            f"{rows['dispatches_cold']} (K = {rows['n_panels_half_width']}: "
+            f"{rows['dispatches_half_width']}), batched {rows['dispatches_batched']}, eager "
+            f"kernel dispatches {rows['eager_kernel_dispatches']}; eager_rel_err "
+            f"{rows['eager_rel_err']:.3e}, batch_rel_err {rows['batch_rel_err']:.3e} (limit "
+            f"{case.BATCH_TOL}), bit_identical_eager {rows['bit_identical_eager']}; "
+            f"launches {counts.as_dict()}; {time.perf_counter() - t0:.1f} s")
+        check(rows["bit_identical_eager"], "general_full: pipeline != eager bit for bit")
+        check(rows["dispatches_batched"] == 1 and rows["allreduce_retrace"] == 0,
+              f"general_full: batched dispatches {rows['dispatches_batched']}, allreduce "
+              f"retraces {rows['allreduce_retrace']}")
+        self.torch.cuda.empty_cache()
+
+    def retrace_guard(self) -> None:
+        """``python -m repro_torch.bench.cases.dispatch --guard``'s body on
+        the card: no guarded entry point builds a program on its second
+        call."""
+        from repro_torch.bench.cases import dispatch as case
+
+        t0 = time.perf_counter()
+        failures = case.guard()
+        self.torch.cuda.synchronize()
+        log(f"[retrace-guard] {failures} entry point(s) re-traced on {self.card_name} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(failures == 0, f"the retrace guard counted {failures} re-traced entry points")
 
     # -- phase 6: combine_gram ----------------------------------------------
 
@@ -2753,6 +2880,8 @@ class Smoke:
             self.train_launcher(root / "launch")
             with self.no_launches("train", "mamba2-2.7b launcher run"):
                 self.train_launcher(root / "mamba2", MAMBA_TRAIN, cut=MAMBA_TRAIN_LAYERS)
+            with self.no_launches("train", "whisper-medium bf16 step"):
+                self.train_whisper_bf16(root / "whisper")
             self.train_scenarios(root)
             self.train_optimizers(root)
             self.train_card_vs_cpu(root / "cpu")
@@ -2834,6 +2963,47 @@ class Smoke:
               f"{arch} fault stats {fs}")
         check(peak < TRAIN_PEAK_LIMIT, f"{arch} peak allocation {peak / 1e9:.2f} GB")
         self.train_counts(f"{arch} launcher run", stats, 1, 6)
+        del tr
+        torch.cuda.empty_cache()
+
+    def train_whisper_bf16(self, ckpt_dir: Path) -> None:
+        """ROADMAP C.11: whisper-medium in bf16 trained on the f32 frames
+        ``SyntheticCorpus`` builds, through the launcher's ``run``: its
+        products promote the f32 encoder and residual against the bf16
+        weights, as the reference's ``jnp`` does.  Published widths, the
+        depth cut to ``WHISPER_TRAIN_LAYERS`` encoder and decoder layers
+        through the registry the launcher reads, for this run only."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data.pipeline import SyntheticCorpus
+        from repro_torch.launch import train
+
+        import numpy as np
+
+        args = train.parse_args(WHISPER_TRAIN + ["--device", DEVICE, "--ckpt-dir",
+                                                 str(ckpt_dir)])
+        arch, published = args.arch, configs.get_config
+        cut = WHISPER_TRAIN_LAYERS
+        configs.get_config = lambda name: (
+            dataclasses.replace(published(name), n_layers=cut, n_enc_layers=cut)
+            if name == arch else published(name))
+        t0 = time.perf_counter()
+        try:
+            tr = train.run(args)
+        finally:
+            configs.get_config = published
+        torch.cuda.synchronize()
+        cfg = tr.model_cfg
+        frames = SyntheticCorpus(tr.data_cfg, "cpu").host_batch(0)["frames"]
+        losses = [m["loss"] for m in tr.metrics_log]
+        log(f"[train] {arch} in {cfg.dtype} ({cfg.n_enc_layers} encoder + {cfg.n_layers} "
+            f"decoder layers of {published(arch).n_enc_layers} + {published(arch).n_layers}, "
+            f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.enc_frames} frames of "
+            f"{frames.dtype}), {' '.join(WHISPER_TRAIN)} on {self.card_name}: loss {losses} "
+            f"in {time.perf_counter() - t0:.3f} s (weights drawn on the card included)")
+        check(cfg.dtype == "bfloat16" and frames.dtype == np.float32,
+              f"{arch}: dtype {cfg.dtype}, frames {frames.dtype}")
+        check(len(losses) == 1 and np.isfinite(losses[0]), f"{arch} bf16 losses {losses}")
         del tr
         torch.cuda.empty_cache()
 

@@ -3,6 +3,8 @@
 :mod:`repro_torch.launch.serve` serves QR requests and the transformer
 models; :mod:`repro_torch.launch.train` trains them with the
 fault-tolerant trainer and replays the stock trainer fault scenarios.  The
-dry-run launcher waits for ROADMAP A.15, the production meshes
-(``launch/mesh.py``, ``launch/shardings.py``) for A.3b.
+reference's dry-run launcher (``launch/dryrun.py``) has no counterpart: its
+product is the partitioned HLO of 512 placeholder devices on the production
+meshes, which one card does not have before the mesh layouts of ROADMAP
+A.3b (``launch/mesh.py``, ``launch/shardings.py``) exist.
 """

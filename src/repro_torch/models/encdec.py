@@ -91,8 +91,8 @@ def _cross_kv(lp, enc_out, cfg):
     (B, F, KH, hd)."""
     kh, hd = cfg.n_kv_heads, cfg.d_head
     b, f, _ = enc_out.shape
-    k = enc_out @ lp["cross"]["wk"]
-    v = enc_out @ lp["cross"]["wv"]
+    k = L.dot(enc_out, lp["cross"]["wk"])
+    v = L.dot(enc_out, lp["cross"]["wv"])
     if cfg.attn_bias:
         k = k + lp["cross"]["bk"]
         v = v + lp["cross"]["bv"]

@@ -10,7 +10,11 @@ Conventions, as in the reference:
     int32 tensor on the CPU (host control flow: the slot to write and the
     mask are known without reading the card);
   * products of bf16 tensors keep the reference's f32 scores: operands are
-    up-cast where the reference asks for ``preferred_element_type=f32``.
+    up-cast where the reference asks for ``preferred_element_type=f32``;
+  * a product of an activation and a weight of different dtypes runs in
+    their promoted dtype (:func:`dot`), as ``jnp``'s ``@`` does: Whisper's
+    f32 frames against bf16 weights keep its encoder, and the decoder's
+    residual once the cross-attention joins it, in f32.
 
 The reference's mesh layouts (``constrain``, ``_expand_kv``,
 ``residual_axes``) have no meaning on one card without a mesh, where the
@@ -27,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.collective.comm import resolve_device
 
 __all__ = [
-    "Init", "dtype_of", "generator_on",
+    "Init", "dtype_of", "generator_on", "dot",
     "init_norm", "apply_norm",
     "rope_cos_sin", "apply_rope",
     "init_attention", "attention", "init_cache",
@@ -40,6 +44,13 @@ __all__ = [
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``torch.result_type`` of the two (a no-op cast when the
+    dtypes agree)."""
+    dt = torch.result_type(x, w)
+    return x.to(dt) @ w.to(dt)
 
 
 def generator_on(generator, device: torch.device) -> torch.Generator:
@@ -223,7 +234,7 @@ def init_cache(cfg, batch: int, s_cache: int, dtype, n_layers: int | None = None
 def _qkv(p, x, cfg):
     h, kh, hd = eff_heads(cfg), cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
@@ -353,7 +364,7 @@ def attention(p, x, cfg, *, cos_sin=None, causal=True, window=None, cache=None, 
         y = _attend_chunked(q, k, v, cfg, causal=causal, window=window, qc=qc)
     else:
         y = _attend_full(q, k, v, cfg, bias)
-    return y.reshape(b, s, -1) @ p["wo"], new_cache
+    return dot(y.reshape(b, s, -1), p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -379,17 +390,17 @@ def init_mlp(init: Init, cfg, d_ff: int | None = None, d_model: int | None = Non
 
 def mlp(p, x, cfg):
     if cfg.act in ("swiglu", "geglu"):
-        g, u = x @ p["wg"], x @ p["wu"]
+        g, u = dot(x, p["wg"]), dot(x, p["wu"])
         act = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
-        return (act * u) @ p["wd"]
-    h = x @ p["w1"]
+        return dot(act * u, p["wd"])
+    h = dot(x, p["w1"])
     if cfg.act == "gelu":
         h = F.gelu(h)
     elif cfg.act == "relu2":
         h = torch.square(F.relu(h))
     else:
         raise ValueError(cfg.act)
-    return h @ p["w2"]
+    return dot(h, p["w2"])
 
 
 # ---------------------------------------------------------------------------

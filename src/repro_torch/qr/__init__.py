@@ -1,11 +1,22 @@
 """QR on the collective engine: :mod:`.panel` (local QR choice, butterfly R
 reduction, explicit Q), :mod:`.tsqr` (the paper's tall-and-skinny workload),
 :mod:`.blocked` (the fault-tolerant blocked QR of general matrices) and the
-:mod:`.api` facade (:class:`QRConfig` + :func:`factorize`)."""
+:mod:`.api` facade (:class:`QRConfig` + :func:`factorize`).  The reference's kwarg entry
+points ``tsqr_sim``, ``blocked_qr_sim`` and ``blocked_qr_batched`` remain
+as deprecated shims; its mesh shims (``tsqr_shard_map``,
+``tsqr_gram_shard_map``, ``blocked_qr_shard_map``) wait for DistComm
+(ROADMAP A.3b)."""
 from .api import Fuse, Pipeline, QRConfig, Recover, Redundancy, factorize
-from .blocked import BlockedQRResult, PanelFaultSchedule, PanelReport, panel_widths
+from .blocked import (
+    BlockedQRResult,
+    PanelFaultSchedule,
+    PanelReport,
+    blocked_qr_batched,
+    blocked_qr_sim,
+    panel_widths,
+)
 from .panel import PanelFactorizer, chol_r, form_q, local_qr_fns
-from .tsqr import TSQRResult
+from .tsqr import TSQRResult, tsqr_sim
 
 __all__ = [
     "BlockedQRResult",
@@ -18,9 +29,12 @@ __all__ = [
     "Recover",
     "Redundancy",
     "TSQRResult",
+    "blocked_qr_batched",
+    "blocked_qr_sim",
     "chol_r",
     "factorize",
     "form_q",
     "local_qr_fns",
     "panel_widths",
+    "tsqr_sim",
 ]

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ __all__ = [
     "Redundancy",
     "factorize",
     "resolve_device",
+    "warn_deprecated_entry",
 ]
 
 
@@ -225,6 +227,19 @@ class QRConfig:
             local_qr="jnp" if local_r == "chol" else local_r, reorth=self.reorth,
             use_pallas=self.use_pallas and self.panel_width is not None,
         )
+
+
+def warn_deprecated_entry(name: str) -> None:
+    """The ``DeprecationWarning`` of the legacy kwarg entry points
+    (``tsqr_sim``, ``blocked_qr_sim``, ``blocked_qr_batched``)."""
+    warnings.warn(
+        f"{name}() is deprecated: build a repro_torch.qr.api.QRConfig and call "
+        "repro_torch.qr.api.factorize(a, config) instead (same drivers, same "
+        "results — the legacy kwargs map 1:1 onto QRConfig fields; see the "
+        "migration table in README.md)",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 def _as_tensor(a, device: torch.device) -> torch.Tensor:

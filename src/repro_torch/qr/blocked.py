@@ -75,11 +75,20 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import traffic as _traffic
 from repro_torch.kernels.backend import backend_of
 
-from .api import Fuse, Pipeline, QRConfig, Recover, Redundancy
+from .api import (
+    Fuse,
+    Pipeline,
+    QRConfig,
+    Recover,
+    Redundancy,
+    _as_tensor,
+    resolve_device,
+    warn_deprecated_entry,
+)
 from .panel import FUSED_PANEL_COMBINER, PanelFactorizer, chol_r
 
 __all__ = ["PIPELINE_NAME", "BlockedQRResult", "PanelFaultSchedule", "PanelReport",
-           "panel_widths"]
+           "blocked_qr_batched", "blocked_qr_sim", "panel_widths"]
 
 PIPELINE_NAME = "blocked_qr_pipeline"    # trace/dispatch counter key
 
@@ -766,3 +775,43 @@ def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResu
     r, valid, q = _run_pipeline(a_batch, widths, reports, pf, config, batched=True)
     return BlockedQRResult(r=r, valid=valid, q=q, reports=reports,
                            panel_width=config.panel_width)
+
+
+# ---------------------------------------------------------------------------
+# Legacy kwarg entry points (deprecated shims over the implementations)
+# ---------------------------------------------------------------------------
+
+def blocked_qr_sim(a_blocks, *, panel_width: int, variant: str = "redundant",
+                   faults: PanelFaultSchedule | None = None, compute_q: bool = False,
+                   local_r: str = "chol", reorth: int = 1, use_pallas: bool = False,
+                   interpret: bool | None = None, recover: str = "replica",
+                   pipeline: str = "auto", fuse: str = "auto",
+                   device=None) -> BlockedQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    and call :func:`repro_torch.qr.api.factorize` on the (P, m_local, n) row
+    blocks instead.  The kwargs map 1:1 onto config fields (``interpret`` is
+    only validated, as the config does); the results are bit for bit the
+    same.  ``a_blocks`` is a numpy array or a tensor, moved to ``device``
+    (``None``: the card)."""
+    warn_deprecated_entry("blocked_qr_sim")
+    config = QRConfig(
+        panel_width=panel_width, variant=variant, local_r=local_r, reorth=reorth,
+        compute_q=compute_q, use_pallas=use_pallas, interpret=interpret,
+        pipeline=pipeline, fuse=fuse, recover=recover,
+    )
+    return _factorize_sim(_as_tensor(a_blocks, resolve_device(device)), config, faults=faults)
+
+
+def blocked_qr_batched(a_batch, *, panel_width: int, variant: str = "redundant",
+                       compute_q: bool = False, local_r: str = "chol", reorth: int = 1,
+                       use_pallas: bool = False, interpret: bool | None = None,
+                       fuse: str = "auto", device=None) -> BlockedQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    and call :func:`repro_torch.qr.api.factorize` on the (B, P, m_local, n)
+    batch instead (one program either way, the same bits)."""
+    warn_deprecated_entry("blocked_qr_batched")
+    config = QRConfig(
+        panel_width=panel_width, variant=variant, local_r=local_r, reorth=reorth,
+        compute_q=compute_q, use_pallas=use_pallas, interpret=interpret, fuse=fuse,
+    )
+    return _factorize_batched(_as_tensor(a_batch, resolve_device(device)), config)

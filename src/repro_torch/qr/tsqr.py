@@ -40,9 +40,9 @@ from repro_torch.collective.faults import FaultSpec
 from repro_torch.collective.plan import Plan, make_plan
 from repro_torch.kernels import dispatch as _dispatch
 
-from .api import QRConfig, Redundancy, _as_tensor
+from .api import QRConfig, Redundancy, _as_tensor, resolve_device, warn_deprecated_entry
 
-__all__ = ["TSQRResult"]
+__all__ = ["TSQRResult", "tsqr_sim"]
 
 
 @dataclasses.dataclass
@@ -163,3 +163,23 @@ def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> TSQRResult:
     _dispatch.note_dispatch("tsqr_batched")
     r, valid, q = replay.run("tsqr_batched", (p, config.canonical()), body, (a_batch,))
     return TSQRResult(r=r, valid=valid, q=q, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# Legacy kwarg entry point (a deprecated shim over the implementation)
+# ---------------------------------------------------------------------------
+
+def tsqr_sim(a_blocks, *, variant: str = "redundant", fault_spec: FaultSpec | None = None,
+             compute_q: bool = False, reorth: int = 1, local_qr="jnp",
+             device=None) -> TSQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    (``panel_width=None`` selects TSQR) and call
+    :func:`repro_torch.qr.api.factorize` on the (P, m_local, n) row blocks
+    instead; the results are bit for bit the same (this delegates to the
+    same implementation).  ``a_blocks`` is a numpy array or a tensor, moved
+    to ``device`` (``None``: the card)."""
+    warn_deprecated_entry("tsqr_sim")
+    config = QRConfig(panel_width=None, variant=variant, local_r=local_qr, reorth=reorth,
+                      compute_q=compute_q)
+    return _factorize_sim(_as_tensor(a_blocks, resolve_device(device)), config,
+                          fault_spec=fault_spec)

@@ -116,11 +116,14 @@ def stats() -> dict[str, int]:
     return {k: _STATS[k] for k in ("evictions", "drops", "recaptures")}
 
 
-def clear() -> None:
-    """Drop every cached program (and its graph and pool)."""
-    for cache in _CACHES.values():
-        cache.clear()
-    _GRAPHS.clear()
+def clear(name: str | None = None) -> None:
+    """Drop every cached program (and its graph and pool), or only entry
+    point ``name``'s (the reference's ``cache_clear()`` of its compile
+    function): its next call for any key traces again."""
+    for entry_name in ([name] if name is not None else list(_CACHES)):
+        _CACHES[entry_name].clear()
+    for gkey in [k for k in _GRAPHS if name is None or k[0] == name]:
+        del _GRAPHS[gkey]
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 

@@ -21,8 +21,11 @@ from repro.bench.registry import bench_case as jbench_case  # noqa: E402
 from repro_torch.bench import compare, registry, runner, schema  # noqa: E402
 from repro_torch.bench.registry import BenchFailure, SkipCase, bench_case, cases_for  # noqa: E402
 
-PORTED = {"autotune", "coded", "comm_volume", "fault_scenarios", "kernels", "robustness",
-          "semantics", "tsqr_local_qr", "tsqr_scaling"}
+# the reference's registry: the fourteen modules of repro.bench.cases,
+# tsqr_local_qr (registered by tsqr_scaling) and fault_scenarios
+PORTED = {"autotune", "coded", "comm_volume", "dispatch", "fault_scenarios", "general_qr",
+          "kernels", "overlap", "powersgd", "robustness", "roofline", "semantics", "serving",
+          "training", "tsqr_local_qr", "tsqr_scaling"}
 
 
 def _as_reference(doc: dict) -> dict:
@@ -47,8 +50,14 @@ def test_list_names_exactly_the_ported_cases(capsys):
     from repro_torch.bench import cases  # noqa: F401 — registers
     from repro_torch.bench.__main__ import main
 
+    from repro.bench import cases as jcases  # noqa: F401 — registers the reference's
+    from repro.bench.registry import REGISTRY as JREGISTRY
+
+    assert len(PORTED) == 16 and set(JREGISTRY) == PORTED
     assert set(registry.REGISTRY) == PORTED
     assert {c.name for c in cases_for("smoke")} == PORTED == {c.name for c in cases_for("full")}
+    for name in PORTED:
+        assert registry.REGISTRY[name].tiers == JREGISTRY[name].tiers, name
     assert main(["list"]) == 0
     listed = {line.split()[0] for line in capsys.readouterr().out.splitlines()}
     assert listed == PORTED

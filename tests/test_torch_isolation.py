@@ -50,7 +50,12 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.bench.cases", "repro_torch.bench.cases.autotune",
             "repro_torch.bench.cases.kernels", "repro_torch.bench.cases.semantics",
             "repro_torch.bench.cases.robustness", "repro_torch.bench.cases.comm_volume",
-            "repro_torch.bench.cases.tsqr_scaling", "repro_torch.bench.cases.coded"} <= set(
+            "repro_torch.bench.cases.tsqr_scaling", "repro_torch.bench.cases.coded",
+            "repro_torch.bench.cases.general_qr", "repro_torch.bench.cases.dispatch",
+            "repro_torch.bench.cases.overlap", "repro_torch.bench.cases.serving",
+            "repro_torch.bench.cases.powersgd", "repro_torch.bench.cases.training",
+            "repro_torch.bench.cases.roofline", "repro_torch.core",
+            "repro_torch.core.tsqr", "repro_torch.core.ref"} <= set(
                 report["modules"])
 
 
