@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths, each driven with the launch counts set to 0 just before it
+Twelve paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -58,9 +58,17 @@ and read just after:
   ``serving`` run the blocked QR on the kernels), the blocked QR's
   factorization latency at general_full through the ``dispatch`` case's
   ``run``, and the retrace guard.
+* **The butterfly across processes** (``mesh=``, ``DistComm``): P = 8 rank
+  processes on the one card, joined over gloo with each wire payload staged
+  through pinned host memory, each factoring its own rows: ``ft_allreduce``
+  and ``ft_allreduce_jit(mesh=)``, TSQR on ``gram`` and
+  ``fused_apply_gram``, the Gram-butterfly TSQR, the blocked QR on
+  ``panel_cross``, ``pad_cross``, ``trailing_update`` and ``gram``, and
+  the kernel layer's explicit-Q CholeskyQR2 of each rank's block on
+  ``apply_right``; every rank reads its own launch counts.
 
-All P ranks live on the one card with a leading (P,) axis, so each sweep is
-one kernel launch for every rank.
+Elsewhere all P ranks live on the one card with a leading (P,) axis, so
+each sweep is one kernel launch for every rank.
 
 Phases (each raises on failure; the script then exits non-zero):
 
@@ -186,6 +194,27 @@ Phases (each raises on failure; the script then exits non-zero):
    ``time_pipeline_p50_us`` and ``time_eager_p50_us`` printed beside
    PERF.md §5's profile of one call; the retrace guard with 0 failures;
    the phase's time, and the whole script's.
+13. (run after 2, while this process holds nothing on the card) the
+   butterfly across processes: spawn 8 rank
+   processes on the card (``repro_torch.collective.dist.run_ranks``, gloo,
+   host staging) after the kernels are built, each drawing the same stacks from
+   the same seeds and keeping its own rows: ``ft_allreduce`` for sum, mean,
+   max and gram_sum over the four variants at 8 × 128 × 128, fault-free
+   and with ranks 5 and 2 dying, every rank's value equal to SimComm's bit
+   for bit and the fast path to the general executor;
+   ``ft_allreduce_jit(mesh=)`` with no trace on a warm repeat; TSQR with
+   ``local_r="cqr2_pallas"`` at 8 × 2^17 × 32 (four variants, rank 5 dead
+   at exchange 1, ``compute_q``) and 8 × 2^19 × 128; the Gram butterfly at
+   8 × 2^19 × 128; the blocked QR at 8 × 2^17 × 512 (pipeline,
+   ``compute_q``, the general driver with a panel- and an update-phase
+   death under ``replace``) and 8 × 2^17 × 480; each rank's R against
+   SimComm's on the same stack (1e-5 of max|R|) and float64, validity
+   against the plans and reports, ‖QᵀQ − I‖, each rank's launches per
+   call and all six kernels launched from every rank; the wall time of
+   each route beside SimComm's, the seconds staged through the host, the
+   peak memory per rank, and the retrace guard inside the world with its
+   ``ShardMapComm`` line; then drop the programs its SimComm comparisons
+   cached (``replay.clear()``), so the later phases start cold as before.
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
@@ -447,6 +476,35 @@ ORTHO_SGD_TOL = 1e-3
 STEP_TOL = 1e-3
 
 
+# Phase 13: the butterfly across processes.  P ranks, one process each, all
+# on the one card, joined over gloo with each wire payload staged through
+# pinned host memory (repro_torch.collective.dist).
+MESH_RANKS = P
+MESH_ALLREDUCE = (P, 128, 128)
+MESH_OPS = ("sum", "mean", "max", "gram_sum")
+MESH_DEATHS = {5: 1, 2: 2}
+MESH_TSQR = {"paper_fig": MAIN_SHAPES["paper_fig"], HEADLINE: MAIN_SHAPES[HEADLINE]}
+MESH_TSQR_RUNS = ([("paper_fig", v, f, False) for v in VARIANTS for f in (None, {5: 1})]
+                  + [("paper_fig", "redundant", None, True)]
+                  + [(HEADLINE, v, f, False) for v in ("redundant", "selfhealing")
+                     for f in (None, {5: 1})])
+MESH_SCHEDULE = dict(panel={1: {2: 1}}, update={2: {5: 1}})
+# (label, shape name, config fields, fault schedule)
+MESH_BLOCKED_RUNS = (
+    ("pipeline", "general_full", {}, None),
+    ("pipeline compute_q", "general_full", {"compute_q": True}, None),
+    ("general driver replace", "general_full", {"variant": "replace"}, MESH_SCHEDULE),
+    ("pipeline ragged", "general_ragged", {}, None),
+)
+MESH_SEEDS = {"allreduce": 13000, "paper_fig": 13001, HEADLINE: 13002, "general_full": 13003,
+              "general_ragged": 13004}
+MESH_SIM_TOL = 1e-5     # a rank's R against SimComm's on the same stack, of max|R|
+MESH_REPEATS = 3        # host-clock samples per route (median)
+MESH_TIMEOUT = 600
+MESH_KERNELS = ("gram", "fused_apply_gram", "apply_right", "trailing_update", "panel_cross",
+                "pad_cross")
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -478,6 +536,7 @@ def main() -> int:
     smoke = Smoke(torch)
     smoke.build()
     card = smoke.card()
+    smoke.mesh_path()
     smoke.kernel_checks()
     smoke.blocked_kernel_checks()
     smoke.combine_gram_path()
@@ -503,6 +562,202 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def mesh_rank(mesh, spec: dict) -> dict:
+    """Phase 13's body in one rank of the world (every rank runs it).
+
+    Each rank draws the same stacks as the parent from the same seeds on
+    the card and keeps its own (m_local, n) block; it drives
+    ``ft_allreduce``, ``ft_allreduce_jit(mesh=)``, TSQR, the Gram-butterfly
+    TSQR and the blocked QR through the mesh routes, the kernel layer's
+    explicit-Q CholeskyQR2 on its block, and the retrace guard, and returns
+    what the parent checks: results as numpy, launch counts, times, the
+    wire's counters and its peak memory."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.bench.cases import dispatch as guard_case
+    from repro_torch.collective import (
+        DistComm,
+        FaultSpec,
+        execute_plan,
+        ft_allreduce,
+        ft_allreduce_jit,
+        make_plan,
+    )
+    from repro_torch.collective import dist as rank_world
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.qr import PanelFaultSchedule, QRConfig, factorize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, dev = mesh.rank, mesh.device
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    counts = dispatch.launches
+    panel = spec["panel"]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def mine(name):
+        gen.manual_seed(MESH_SEEDS[name])
+        stack = torch.randn(spec["shapes"][name], generator=gen, device=dev)
+        return stack[r].clone()         # a view would keep the whole stack alive
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def gram64(q):
+        q = q.double()
+        return host(q.mT @ q)
+
+    def wall(fn) -> float:
+        """Median host-clock ms of warm calls, each ending in a synchronize
+        and a barrier of the world."""
+        samples = []
+        for _ in range(MESH_REPEATS):
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            dist.barrier()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    peaks: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def peak(label):
+        """The route's peak allocation (GB), counted from its own start."""
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        yield
+        sync()
+        peaks[label] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+
+    def delta_since(before):
+        sync()
+        return {k: v - before[k] for k, v in counts.as_dict().items() if v != before[k]}
+
+    t_rank = time.perf_counter()
+    data = {name: mine(name) for name in MESH_SEEDS}
+    x = data["allreduce"]
+    sym = x + x.mT                      # elementwise: the parent's has the same bits
+    sync()
+    if on_card:
+        torch.cuda.empty_cache()
+    rank_world.wire.reset()
+    comm = DistComm(MESH_RANKS, "rows")
+    out: dict = {"rank": r, "times": {}, "tsqr": {}, "blocked": {}, "allreduce": {}}
+    dist.barrier()
+    counts.reset()
+    t_cases = time.perf_counter()
+
+    # -- ft_allreduce: every combiner and variant, fault-free and faulted ---
+    same_fast = []
+    with peak("ft_allreduce"):
+        for deaths in (None, MESH_DEATHS):
+            for op in MESH_OPS:
+                payload = sym if op == "gram_sum" else x
+                for variant in VARIANTS:
+                    plan = make_plan(variant, MESH_RANKS,
+                                     FaultSpec.of(deaths) if deaths else None)
+                    v, ok = ft_allreduce(payload, comm, op=op, plan=plan)
+                    out["allreduce"][(op, variant, bool(deaths))] = (host(v), bool(ok))
+                    if plan.is_fault_free:
+                        va, oa = execute_plan(payload, comm, plan, op)
+                        vg, og = execute_plan(payload, comm, plan, op, fast=False)
+                        same_fast.append(bool(torch.equal(va.view(torch.int32),
+                                                          vg.view(torch.int32))
+                                              and torch.equal(oa, og)))
+        out["fast_equals_general"] = same_fast
+        mine_row = x[None]
+        vj, okj = ft_allreduce_jit(mine_row, comm, op="sum", mesh=mesh)
+        before = dispatch.trace_count("ft_allreduce")
+        vj2, _ = ft_allreduce_jit(mine_row, comm, op="sum", mesh=mesh)
+        plain, _ = ft_allreduce(x, comm, op="sum")
+        out["jit"] = (dispatch.trace_count("ft_allreduce") - before,
+                      bool(torch.equal(vj[0], plain) and torch.equal(vj2, vj)), bool(okj[0]))
+        out["times"]["ft_allreduce_jit sum"] = wall(
+            lambda: ft_allreduce_jit(mine_row, comm, op="sum", mesh=mesh))
+
+    # -- TSQR on the kernels (local_r="cqr2_pallas") ------------------------
+    for name, variant, deaths, want_q in MESH_TSQR_RUNS:
+        cfg = QRConfig(variant=variant, local_r="cqr2_pallas", compute_q=want_q)
+        faults = FaultSpec.of(deaths) if deaths else None
+        with peak(f"tsqr {name}{' compute_q' if want_q else ''}"):
+            before = counts.as_dict()
+            res = factorize(data[name], cfg, faults=faults, mesh=mesh)
+            launched = delta_since(before)
+            out["tsqr"][(name, variant, bool(deaths), want_q)] = (
+                host(res.r[0]), bool(res.valid[0]), res.plan.final_valid,
+                gram64(res.q) if want_q else None, launched)
+            del res
+            if deaths is None and not want_q and variant == "redundant":
+                out["times"][f"tsqr {name} redundant"] = wall(
+                    lambda cfg=cfg, name=name: factorize(data[name], cfg, mesh=mesh))
+    # the Gram-butterfly TSQR at powersgd_panel's width
+    with peak(f"gram butterfly {HEADLINE}"):
+        res = factorize(data[HEADLINE], QRConfig(gram=True), mesh=mesh)
+        out["gram"] = (host(res.r[0]), bool(res.valid[0]), gram64(res.q))
+        del res
+        out["times"][f"gram butterfly {HEADLINE}"] = wall(
+            lambda: factorize(data[HEADLINE], QRConfig(gram=True), mesh=mesh))
+    # the kernel layer's explicit-Q CholeskyQR2 of this rank's block
+    with peak(f"ops.cholesky_qr2 {HEADLINE}"):
+        before = counts.as_dict()
+        q, r_full = ops.cholesky_qr2(data[HEADLINE], use_pallas=True)
+        r_only = ops.cholesky_qr2_r(data[HEADLINE], use_pallas=True)
+        launched = delta_since(before)
+        eye = np.eye(q.shape[-1])
+        out["cholesky_qr2"] = (bool(torch.equal(r_full, r_only)),
+                               float(np.abs(gram64(q) - eye).max()), launched)
+        del q
+
+    # -- the blocked QR on the kernels ---------------------------------------
+    for label, name, fields, sched in MESH_BLOCKED_RUNS:
+        cfg = QRConfig(panel_width=panel, use_pallas=True, **fields)
+        faults = PanelFaultSchedule.of(**sched) if sched else None
+        with peak(f"blocked {label} {name}"):
+            before = counts.as_dict()
+            res = factorize(data[name], cfg, faults=faults, mesh=mesh)
+            launched = delta_since(before)
+            reports = [(rep.plan_r.final_valid, None if rep.plan_w is None else
+                        rep.plan_w.final_valid, rep.fused, bool(rep.recovered_r))
+                       for rep in res.reports]
+            out["blocked"][label] = (host(res.r[0]), bool(res.valid[0]), reports,
+                                     gram64(res.q) if res.q is not None else None, launched)
+            del res
+            if not fields.get("compute_q"):
+                out["times"][f"blocked {label} {name}"] = wall(
+                    lambda cfg=cfg, faults=faults, name=name: factorize(
+                        data[name], cfg, faults=faults, mesh=mesh))
+    sync()
+    out["launches"] = counts.as_dict()
+    out["cases_s"] = time.perf_counter() - t_cases
+    out["wire"] = rank_world.wire.as_dict()
+    out["peaks"] = peaks
+    out["data_gb"] = sum(t.numel() * t.element_size() for t in data.values()) / 1e9
+
+    # -- the retrace guard inside the world (its ShardMapComm line) ----------
+    t_guard = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        failures = guard_case.guard()
+    out["guard"] = (failures, buf.getvalue(), time.perf_counter() - t_guard)
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
 
 
 class Smoke:
@@ -3385,6 +3640,252 @@ class Smoke:
         log(f"[time] trailing sweeps' bound per general_full factorization: pipeline (n_t = "
             f"{widths[0]} every panel) {bound['pipeline']:.3f} ms, eager ({widths}) "
             f"{bound['eager']:.3f} ms")
+
+    # -- phase 13: the butterfly across processes -----------------------------
+
+    def mesh_path(self) -> None:
+        """Spawn ``MESH_RANKS`` rank processes on the one card
+        (:func:`repro_torch.collective.dist.run_ranks`, gloo, host-staged),
+        run :func:`mesh_rank` in each, and hold what they return against
+        SimComm's results on the same stacks, computed here on the card
+        afterwards, and against float64."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch import replay
+        from repro_torch.collective import FaultSpec, SimComm, ft_allreduce, ft_allreduce_jit
+        from repro_torch.collective import dist as rank_world
+        from repro_torch.collective import make_plan
+        from repro_torch.qr import PanelFaultSchedule, QRConfig, factorize
+        from repro_torch.qr.tsqr import gram_tsqr
+
+        t_phase = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[dist] gloo, host-staged, {MESH_RANKS} ranks on {self.card_name}")
+        shapes = {"allreduce": MESH_ALLREDUCE, **MESH_TSQR, **BLOCKED_SHAPES}
+        ranks = rank_world.run_ranks(mesh_rank, MESH_RANKS, device=DEVICE,
+                                     args=({"shapes": shapes, "panel": PANEL},),
+                                     timeout=MESH_TIMEOUT)
+        t_world = time.perf_counter() - t_phase
+        check([out["rank"] for out in ranks] == list(range(MESH_RANKS)), "ranks out of order")
+
+        def rel(a, b) -> float:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            return float(np.abs(a - b).max() / np.abs(b).max())
+
+        def bits(a, b) -> bool:
+            return a.dtype == b.dtype and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+        sim_ms = {}
+
+        def sim_wall(label, fn):
+            samples = []
+            fn()
+            for _ in range(MESH_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            sim_ms[label] = statistics.median(samples)
+
+        # -- ft_allreduce ------------------------------------------------------
+        x = self.randn(MESH_ALLREDUCE, MESH_SEEDS["allreduce"])
+        sym = x + x.mT
+        sim = SimComm(MESH_RANKS, DEVICE)
+        n_cases = 0
+        for deaths in (None, MESH_DEATHS):
+            for op in MESH_OPS:
+                payload = sym if op == "gram_sum" else x
+                for variant in VARIANTS:
+                    plan = make_plan(variant, MESH_RANKS, FaultSpec.of(deaths) if deaths else None)
+                    v, ok = ft_allreduce(payload, sim, op=op, plan=plan)
+                    v, ok = v.cpu().numpy(), ok.cpu().numpy()
+                    tag = f"ft_allreduce {op} {variant} faults={deaths}"
+                    got_ok = np.array([out["allreduce"][(op, variant, bool(deaths))][1]
+                                       for out in ranks])
+                    check((got_ok == plan.final_valid).all() and (got_ok == ok).all(),
+                          f"{tag}: validity {got_ok} != plan {plan.final_valid}")
+                    for i, out in enumerate(ranks):
+                        check(bits(out["allreduce"][(op, variant, bool(deaths))][0], v[i]),
+                              f"{tag}: rank {i}'s value differs from SimComm's bits")
+                    n_cases += 1
+        fast = [flag for out in ranks for flag in out["fast_equals_general"]]
+        check(all(fast), "a rank's fast path differs from its general executor")
+        log(f"[dist] ft_allreduce at {MESH_ALLREDUCE}: {n_cases} cases (sum, mean, max, "
+            f"gram_sum x 4 variants x fault-free and {MESH_DEATHS}), validity == plan and "
+            f"every rank's value == SimComm's bit for bit; fast == general executor bit for "
+            f"bit in {len(fast)} rank-cases")
+        for i, out in enumerate(ranks):
+            traced, same, ok = out["jit"]
+            check(traced == 0 and same and ok, f"rank {i}: ft_allreduce_jit(mesh=) warm repeat "
+                  f"traced {traced}, equal to ft_allreduce {same}, valid {ok}")
+        sim_wall("ft_allreduce_jit sum", lambda: ft_allreduce_jit(x, sim, op="sum"))
+        log("[dist] ft_allreduce_jit(mesh=): equal to ft_allreduce bit for bit, no trace on "
+            "a warm repeat, on every rank")
+        del x, sym
+
+        # -- TSQR and the Gram butterfly --------------------------------------
+        for name in MESH_TSQR:
+            a = self.randn(MESH_TSQR[name], MESH_SEEDS[name])
+            truth = self.truth_r(a)
+            t_max = truth.abs().max().item()
+            for name_, variant, deaths, want_q in MESH_TSQR_RUNS:
+                if name_ != name:
+                    continue
+                cfg = QRConfig(variant=variant, local_r="cqr2_pallas", compute_q=want_q)
+                faults = FaultSpec.of(deaths) if deaths else None
+                res = factorize(a, cfg, faults=faults)
+                sim_r = res.r.cpu().numpy()
+                tag = f"tsqr {name} {tuple(a.shape)} {variant} faults={deaths} q={want_q}"
+                rows = [out["tsqr"][(name, variant, bool(deaths), want_q)] for out in ranks]
+                valid = np.array([row[1] for row in rows])
+                check((valid == rows[0][2]).all() and (valid == res.valid.cpu().numpy()).all(),
+                      f"{tag}: validity {valid} != plan {rows[0][2]}")
+                sim_err = max(rel(rows[i][0], sim_r[i]) for i in np.flatnonzero(valid))
+                f64_err = max(float((torch.from_numpy(rows[i][0]).to(DEVICE).double()
+                                     - truth).abs().max().item() / t_max)
+                              for i in np.flatnonzero(valid))
+                check(sim_err <= MESH_SIM_TOL, f"{tag}: R vs SimComm {sim_err:.3e}")
+                check(f64_err <= R_TIGHT, f"{tag}: R vs float64 {f64_err:.3e} > {R_TIGHT}")
+                want = {"gram": 1 + want_q, "fused_apply_gram": 1}
+                for i, row in enumerate(rows):
+                    check(row[4] == want, f"{tag}: rank {i} launched {row[4]}, want {want}")
+                line = (f"[dist] {tag} valid={valid.astype(int).tolist()} R vs SimComm "
+                        f"{sim_err:.2e} vs float64 {f64_err:.2e}")
+                if want_q:
+                    ortho = float(np.abs(sum(row[3] for row in rows)
+                                         - np.eye(a.shape[-1])).max())
+                    check(ortho <= ORTHO_TOL, f"{tag}: ||QᵀQ − I|| {ortho:.3e}")
+                    line += f" ||QᵀQ−I||={ortho:.2e}"
+                log(line + f" launches a rank {rows[0][4]}")
+                if deaths is None and not want_q and variant == "redundant":
+                    sim_wall(f"tsqr {name} redundant", lambda a=a, cfg=cfg: factorize(a, cfg))
+            if name == HEADLINE:
+                rg, qg = gram_tsqr(a, SimComm(MESH_RANKS, DEVICE))
+                rg = rg.cpu().numpy()
+                del qg
+                sim_err = max(rel(out["gram"][0], rg[i]) for i, out in enumerate(ranks))
+                f64_err = max(float((torch.from_numpy(out["gram"][0]).to(DEVICE).double()
+                                     - truth).abs().max().item() / t_max) for out in ranks)
+                ortho = float(np.abs(sum(out["gram"][2] for out in ranks)
+                                     - np.eye(a.shape[-1])).max())
+                check(all(out["gram"][1] for out in ranks), "gram butterfly: a rank invalid")
+                check(sim_err <= MESH_SIM_TOL, f"gram butterfly: R vs SimComm {sim_err:.3e}")
+                check(f64_err <= R_TIGHT, f"gram butterfly: R vs float64 {f64_err:.3e}")
+                check(ortho <= ORTHO_TOL, f"gram butterfly: ||QᵀQ − I|| {ortho:.3e}")
+                log(f"[dist] gram butterfly {name} {tuple(a.shape)}: R vs SimComm "
+                    f"{sim_err:.2e} vs float64 {f64_err:.2e} ||QᵀQ−I||={ortho:.2e}")
+                sim_wall(f"gram butterfly {name}",
+                         lambda a=a: gram_tsqr(a, SimComm(MESH_RANKS, DEVICE)))
+            del a, truth
+        for i, out in enumerate(ranks):
+            same, ortho, launched = out["cholesky_qr2"]
+            check(same and ortho <= 3e-5 and launched == {"gram": 2, "fused_apply_gram": 2,
+                                                          "apply_right": 1},
+                  f"rank {i}: cholesky_qr2 R-only == full-Q {same}, ||QᵀQ − I|| {ortho:.3e}, "
+                  f"launches {launched}")
+        log(f"[dist] ops.cholesky_qr2 of each rank's {MESH_TSQR[HEADLINE][1:]} block: "
+            f"R-only == full-Q R, per-rank ||QᵀQ−I|| <= "
+            f"{max(out['cholesky_qr2'][1] for out in ranks):.2e}")
+
+        # -- the blocked QR --------------------------------------------------
+        for name in BLOCKED_SHAPES:
+            a = self.randn(BLOCKED_SHAPES[name], MESH_SEEDS[name])
+            truth = self.truth_r(a)
+            t_max = truth.abs().max().item()
+            for label, name_, fields, sched in MESH_BLOCKED_RUNS:
+                if name_ != name:
+                    continue
+                cfg = QRConfig(panel_width=PANEL, use_pallas=True, **fields)
+                faults = PanelFaultSchedule.of(**sched) if sched else None
+                res = factorize(a, cfg, faults=faults)
+                sim_r = res.r.cpu().numpy()
+                tag = f"blocked {label} {name} {tuple(a.shape)}"
+                rows = [out["blocked"][label] for out in ranks]
+                expect = np.ones(MESH_RANKS, bool)
+                for plan_r, plan_w, fused, _ in rows[0][2]:
+                    expect &= plan_r
+                    if not fused and plan_w is not None:
+                        expect &= plan_w
+                valid = np.array([row[1] for row in rows])
+                check((valid == expect).all() and (valid == res.valid.cpu().numpy()).all(),
+                      f"{tag}: validity {valid} != reports {expect}")
+                # replica fetch restores every rank, valid or not
+                sim_err = max(rel(row[0], sim_r[i]) for i, row in enumerate(rows))
+                f64_err = max(float((torch.from_numpy(row[0]).to(DEVICE).double() - truth)
+                                    .abs().max().item() / t_max) for row in rows)
+                check(sim_err <= MESH_SIM_TOL, f"{tag}: R vs SimComm {sim_err:.3e}")
+                check(f64_err <= R_TIGHT_BLOCKED,
+                      f"{tag}: R vs float64 {f64_err:.3e} > {R_TIGHT_BLOCKED}")
+                k_panels = len(rows[0][2])
+                eager = faults is not None
+                prime = ("pad_cross" if not eager and a.shape[-1] < k_panels * PANEL
+                         else "panel_cross")
+                want = {prime: 1, "trailing_update": k_panels - 1,
+                        "gram": sum(1 for pr, _, _, rec in rows[0][2] if pr.all() or rec)}
+                for i, row in enumerate(rows):
+                    check(row[4] == want, f"{tag}: rank {i} launched {row[4]}, want {want}")
+                line = (f"[dist] {tag} valid={valid.astype(int).tolist()} every rank's R vs "
+                        f"SimComm {sim_err:.2e} vs float64 {f64_err:.2e}")
+                if fields.get("compute_q"):
+                    ortho = float(np.abs(sum(row[3] for row in rows)
+                                         - np.eye(a.shape[-1])).max())
+                    check(ortho <= ORTHO_BLOCKED, f"{tag}: ||QᵀQ − I|| {ortho:.3e}")
+                    line += f" ||QᵀQ−I||={ortho:.2e}"
+                log(line + f" launches a rank {rows[0][4]}")
+                del res
+                if not fields.get("compute_q"):
+                    sim_wall(f"blocked {label} {name}",
+                             lambda a=a, cfg=cfg, faults=faults: factorize(a, cfg, faults=faults))
+            del a, truth
+
+        # -- launches, times, the wire, memory, the guard ----------------------
+        total = dict.fromkeys(ranks[0]["launches"], 0)
+        for i, out in enumerate(ranks):
+            missing = [k for k in MESH_KERNELS if not out["launches"][k]]
+            check(not missing, f"rank {i} never launched {missing}: {out['launches']}")
+            check(out["launches"]["combine_gram"] == 0, f"rank {i} launched combine_gram")
+            for k, v in out["launches"].items():
+                total[k] += v
+        self.launches["mesh"] = total
+        log(f"[dist] launches a rank: {[out['launches'] for out in ranks]}")
+        log(f"[dist] launches over the {MESH_RANKS} ranks: {total}")
+        for label in ranks[0]["times"]:
+            ms = [out["times"][label] for out in ranks]
+            log(f"[dist] {label}: {MESH_RANKS} ranks {max(ms):.3f} ms (median of "
+                f"{MESH_REPEATS}, host clock to a synchronize and a barrier; slowest rank) "
+                f"vs SimComm {sim_ms[label]:.3f} ms on {self.card_name}")
+        wire = [out["wire"] for out in ranks]
+        log(f"[dist] the wire: {sum(w['messages'] for w in wire)} messages, "
+            f"{sum(w['bytes_sent'] for w in wire)} bytes sent, "
+            f"{sum(w['staged_bytes'] for w in wire)} bytes staged through pinned host memory; "
+            f"staging {sum(w['staging_seconds'] for w in wire):.3f} s over the ranks "
+            f"(max {max(w['staging_seconds'] for w in wire):.3f} s a rank), exchanges "
+            f"{max(w['exchange_seconds'] for w in wire):.3f} s a rank at most")
+        peak_gb = [max(out["peaks"].values()) for out in ranks]
+        log(f"[dist] torch.cuda.max_memory_allocated a rank (GB): "
+            f"{[round(gb, 3) for gb in peak_gb]}, with the rank's {ranks[0]['data_gb']:.3f} GB "
+            f"of input blocks held throughout; by route on rank 0: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ranks[0]["peaks"].items()))
+        failures = [out["guard"][0] for out in ranks]
+        lines = [ln for ln in ranks[0]["guard"][1].splitlines()
+                 if ln.startswith("[retrace-guard]")]
+        check(failures == [0] * MESH_RANKS and len(lines) == 19 and
+              all(ln.endswith(": ok") for ln in lines),
+              f"the retrace guard in the world: failures {failures}, lines {lines}")
+        check(sum(ln == "[retrace-guard] ft_allreduce: ok" for ln in lines) == 2,
+              "the guard in the world printed no ShardMapComm ft_allreduce line")
+        for ln in lines:
+            log(ln)
+        log(f"[dist] the retrace guard in the {MESH_RANKS}-rank world: 19 lines ok "
+            f"({max(out['guard'][2] for out in ranks):.1f} s a rank)")
+        replay.clear()       # the later phases capture their programs cold
+        log(f"[dist] ranks took {max(out['cases_s'] for out in ranks):.1f} s for the cases, "
+            f"{max(out['rank_s'] for out in ranks):.1f} s in all; the world "
+            f"{t_world:.1f} s from spawn to the last result; phase 13 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
 
     def kernel_rows(self) -> list[dict]:
         rows = []

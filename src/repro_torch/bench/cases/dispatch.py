@@ -245,6 +245,22 @@ if __name__ != "__main__":
 # Standalone retrace guard
 # ---------------------------------------------------------------------------
 
+def _prints() -> bool:
+    """Inside a rank world only rank 0 prints the guard's lines."""
+    import torch.distributed as dist
+
+    from repro_torch.collective.dist import world_mesh
+
+    return world_mesh() is None or dist.get_rank() == 0
+
+
+def _report(label: str, delta: int) -> int:
+    status = "ok" if delta == 0 else f"RETRACED x{delta}"
+    if _prints():
+        print(f"[retrace-guard] {label}: {status}")
+    return int(delta != 0)
+
+
 def _guarded(name: str, fn, label: str | None = None) -> int:
     """Call ``fn`` twice; print the guard's line; 1 if the second call
     traced ``name`` (``None``: any entry point) again, else 0."""
@@ -253,35 +269,49 @@ def _guarded(name: str, fn, label: str | None = None) -> int:
     fn()                                         # warm (may trace)
     before = disp.trace_count(name)
     fn()                                         # must not trace again
-    delta = disp.trace_count(name) - before
-    status = "ok" if delta == 0 else f"RETRACED x{delta}"
-    print(f"[retrace-guard] {label or name}: {status}")
-    return int(delta != 0)
+    return _report(label or name, disp.trace_count(name) - before)
 
 
 def guard(device=None) -> int:
     """Call every guarded entry point twice with identical statics on
     ``device`` (``None``: the card); return the number of entry points that
-    re-traced on the second call.  The reference's four mesh checks
-    (``blocked_qr_shard_map`` twice, ``tsqr_shard_map``,
-    ``tsqr_gram_shard_map``) and its ``ShardMapComm`` branch wait for
-    DistComm (ROADMAP A.3b)."""
+    re-traced on the second call.
+
+    The reference's four mesh checks (``blocked_qr_shard_map`` twice,
+    ``tsqr_shard_map``, ``tsqr_gram_shard_map``) run on a one-device mesh;
+    the port runs them in this process on a mesh of this rank alone
+    (:func:`~repro_torch.collective.dist.local_mesh`).  The reference's
+    ``ShardMapComm`` check joins where it sees at least four devices; the
+    port's joins where the guard runs inside a rank world of at least four
+    ranks (every rank of the world runs the guard, the first four run that
+    check, and only rank 0 prints).  The guard never spawns that world."""
+    import contextlib
     import shutil
     import tempfile
 
-    from repro_torch.collective import FaultSpec, SimComm, ft_allreduce_jit
+    from repro_torch.collective import DistComm, FaultSpec, SimComm, ft_allreduce_jit
+    from repro_torch.collective import dist as rank_world
     from repro_torch.collective.comm import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     from repro_torch.kernels import autotune as at
     from repro_torch.kernels import dispatch as disp
     from repro_torch.kernels import ops as kops
-    from repro_torch.qr import QRConfig, blocked_qr_batched, blocked_qr_sim, factorize
+    from repro_torch.qr import (
+        QRConfig,
+        blocked_qr_batched,
+        blocked_qr_shard_map,
+        blocked_qr_sim,
+        factorize,
+        tsqr_gram_shard_map,
+        tsqr_shard_map,
+    )
     from repro_torch.runtime.elastic import ReplicaMesh, rebuild_mesh
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.serve import BucketSpec, CostModel, PeriodicFaultInjector, QRServer
 
-    device = resolve_device(device)
+    world = rank_world.world_mesh()
+    device = resolve_device(device if device is not None or world is None else world.device)
     cfg_coded = QRConfig(panel_width=None, redundancy="coded", parity=2)
     spec_coded = FaultSpec.of({1: 0})
     rng = np.random.default_rng(0)
@@ -293,6 +323,8 @@ def guard(device=None) -> int:
     ab = tensor((2, 4, 96, 40))
     flat = tensor((128, 24))
     x = tensor((4, 32))
+    stack = contextlib.ExitStack()
+    mesh = stack.enter_context(rank_world.local_mesh("x", device))
     checks = [
         ("blocked_qr_pipeline",
          lambda: blocked_qr_sim(a, panel_width=12, pipeline="on", device=device)),
@@ -304,6 +336,13 @@ def guard(device=None) -> int:
          lambda: blocked_qr_sim(a, panel_width=12, pipeline="on", fuse="off", device=device)),
         ("blocked_qr_pipeline",
          lambda: blocked_qr_batched(ab, panel_width=12, device=device)),
+        # on a mesh of one rank the local block is the whole matrix
+        ("blocked_qr_pipeline",
+         lambda: blocked_qr_shard_map(flat, mesh=mesh, axis="x", panel_width=8)),
+        ("blocked_qr_pipeline",
+         lambda: blocked_qr_shard_map(flat, mesh=mesh, axis="x", panel_width=8, fuse="off")),
+        ("tsqr_shard_map", lambda: tsqr_shard_map(flat, mesh=mesh, axis="x")),
+        ("tsqr_gram_shard_map", lambda: tsqr_gram_shard_map(flat, mesh=mesh, axis="x")),
         ("ft_allreduce",
          lambda: ft_allreduce_jit(x, SimComm(4, device), op="sum")),
         # coded warm paths: fault-free and faulted plans are distinct cached
@@ -317,7 +356,19 @@ def guard(device=None) -> int:
              torch.zeros((8, 24), dtype=torch.float32, device=device),
              next_width=8, use_pallas=True)),
     ]
-    failures = sum(_guarded(name, fn) for name, fn in checks)
+    # DistComm: the cached per-rank butterfly over the first four ranks of
+    # a world is retrace-proof too — keyed on (mesh, comm, plan, combiner);
+    # each rank passes its (1, 32) row of x.
+    if world is not None and world.size >= 4:
+        smesh = rank_world.sub_mesh(4, "x")        # every rank of the world joins
+        if smesh is not None:
+            xr = x[smesh.rank:smesh.rank + 1]
+            checks.append(
+                ("ft_allreduce",
+                 lambda: ft_allreduce_jit(xr, DistComm(4, "x", smesh.group, device), op="sum",
+                                          mesh=smesh)))
+    with stack:
+        failures = sum(_guarded(name, fn) for name, fn in checks)
 
     # Serving warm path: after prewarm and one mixed-shape pass (batched
     # drains AND the fault re-serve fallback), a second pass over the whole
@@ -361,9 +412,7 @@ def guard(device=None) -> int:
             delta = disp.trace_count("train_step") - before
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        status = "ok" if delta == 0 else f"RETRACED x{delta}"
-        print(f"[retrace-guard] train_step:{opt}: {status}")
-        failures += delta != 0
+        failures += _report(f"train_step:{opt}", delta)
 
     # Tuned-config warm paths: installing an autotune table changes the
     # resolved block_rows (a statics key) of its shape classes, so the first

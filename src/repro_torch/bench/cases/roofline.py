@@ -12,7 +12,7 @@ the exact affine-in-m totals are extrapolated, so the fused/unfused ratio
 
 The reference's other half reads its dry-run records — the partitioned HLO
 of production TPU meshes (``launch/dryrun.py``), which has no counterpart on
-one card (ROADMAP A.3b) — and reports per-cell roofline fractions when they
+one card (ROADMAP A.3f) — and reports per-cell roofline fractions when they
 exist; with none it reports ``n_cells`` 0, which is what the port reports.
 """
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The port of :mod:`repro.collective`: the fail-stop fault model and the
 paper's 2^s − 1 tolerance accounting (:mod:`.faults`), host-side routing
 for the four variants (:mod:`.plan`), the combine algebra
-(:mod:`.combiners`), the simulated-ranks backend (:mod:`.comm`), and the
+(:mod:`.combiners`), the simulated-ranks and one-process-per-rank backends
+(:mod:`.comm`; the rank world of the latter in :mod:`.dist`), and the
 plan executor with validity threading and self-healing restores
 (:mod:`.engine`), and checksum-coded redundancy (:mod:`.coded`); each
 all-reduce also as a cached program (``ft_allreduce_jit``,
@@ -34,7 +35,7 @@ from .coded import (
     make_coded_plan,
     reconstruction_tol,
 )
-from .comm import Comm, SimComm
+from .comm import Comm, DistComm, ShardMapComm, SimComm
 from .engine import (
     execute_plan,
     ft_allreduce,
@@ -61,6 +62,7 @@ __all__ = [
     "Comm",
     "CommStats",
     "Combiner",
+    "DistComm",
     "FaultSpec",
     "GramSumCombiner",
     "InstrumentedComm",
@@ -69,6 +71,7 @@ __all__ = [
     "NEVER",
     "Plan",
     "QRCombiner",
+    "ShardMapComm",
     "SimComm",
     "StackedCombiner",
     "Step",

@@ -55,9 +55,10 @@ from repro_torch.kernels import dispatch as _dispatch
 
 from ._tree import leaves, structure, tree_map, unflatten
 from .combiners import Combiner, get_combiner
-from .comm import Comm, SimComm, check_device
+from .comm import Comm, DistComm, SimComm, check_device
 from .engine import _poison, _wire_codec
 from .faults import FaultSpec
+from .instrument import InstrumentedComm
 from .plan import leaf_bytes, payload_numel
 
 __all__ = [
@@ -488,6 +489,10 @@ def _check_inexact(x) -> None:
             )
 
 
+def _base_comm(comm: Comm) -> Comm:
+    return comm.inner if isinstance(comm, InstrumentedComm) else comm
+
+
 def execute_coded(x, comm: Comm, plan: CodedPlan, combiner: Combiner | str, *, observed=None):
     """Run one coded reduction.  Returns ``(value, valid, detected)``.
 
@@ -509,6 +514,11 @@ def execute_coded(x, comm: Comm, plan: CodedPlan, combiner: Combiner | str, *, o
         coded, inner = inner, inner.inner
     else:
         coded = CodedCombiner(inner=inner, plan=plan)
+    if isinstance(_base_comm(comm), DistComm):
+        raise ValueError(
+            "coded collectives execute on the SimComm backend only: the "
+            "root-side decode indexes rank rows of the (W,)-leading layout"
+        )
     w_ = plan.n_ranks
     if comm.n_ranks != w_:
         raise ValueError(

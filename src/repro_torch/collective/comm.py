@@ -1,12 +1,17 @@
 """Communication backends for the fault-tolerant butterfly collectives.
 
 The engine in :mod:`repro_torch.collective.engine` is written once against
-this small interface.  This slice has one backend:
+this small interface and runs on either backend:
 
   * :class:`SimComm` — a single-device simulation where every per-rank value
     carries a leading ``(P,)`` axis and exchanges are gathers.  On the card
     this is how one H100 runs all P ranks: one kernel launch covers the
     whole (P, m_local, n) stack.
+  * :class:`DistComm` (also exported as ``ShardMapComm``, the reference's
+    name) — one process per rank (:mod:`repro_torch.collective.dist`);
+    per-rank values are 0-d tensors and local blocks, and an exchange is
+    one ``batch_isend_irecv`` per perm round.  The reference's production
+    path, run as P processes in place of ``shard_map`` over P devices.
 
 Non-receiving ranks get zeros (the semantics of a collective permute whose
 destination list omits them), which the validity bits then adjudicate.
@@ -28,9 +33,9 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from ._tree import leaves, tree_map
+from ._tree import leaves, structure, tree_map, unflatten
 
-__all__ = ["Comm", "SimComm", "check_device", "resolve_device"]
+__all__ = ["Comm", "DistComm", "ShardMapComm", "SimComm", "check_device", "resolve_device"]
 
 Pair = tuple[int, int]
 
@@ -53,7 +58,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Comm:
-    """Interface: per-rank values with a leading (P,) axis."""
+    """Interface: per-rank values with a leading (P,) axis (simulated) or
+    this rank's own values (one process per rank)."""
 
     n_ranks: int
     device: torch.device
@@ -149,3 +155,78 @@ class SimComm(Comm):
     def leaf_nbytes(self, leaf) -> int:
         # leading (P,) axis: one rank's slice is 1/P of the array
         return int(np.prod(leaf.shape[1:], dtype=np.int64)) * leaf.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class DistComm(Comm):
+    """One process per rank: this rank's values are 0-d tensors and local
+    blocks, and :meth:`exchange` crosses processes.
+
+    ``group`` is the process group of the ``n_ranks`` ranks (``None``: the
+    rank world's, :func:`repro_torch.collective.dist.init_rank_world`);
+    ``device`` where this rank computes (``None``: the world's device).
+    The payload travels as described in :mod:`repro_torch.collective.dist`:
+    staged through pinned host memory over gloo on the card, as it is over
+    gloo on the CPU, and as a device tensor over NCCL (not run yet).
+    """
+
+    n_ranks: int
+    axis: str
+    group: object = dataclasses.field(default=None, compare=False, repr=False)
+    device: torch.device | str | None = None
+    members: tuple[int, ...] = dataclasses.field(init=False, default=())
+    rank: int = dataclasses.field(init=False, default=0, compare=False)
+
+    def __post_init__(self):
+        import torch.distributed as dist
+
+        from . import dist as _dist
+
+        world = _dist.world_mesh()
+        if world is None:
+            raise RuntimeError(
+                "DistComm needs a rank world: call "
+                "repro_torch.collective.dist.init_rank_world (or run_ranks) first"
+            )
+        group = dist.group.WORLD if self.group is None else self.group
+        size = dist.get_world_size(group)
+        if size != self.n_ranks:
+            raise ValueError(f"the process group has {size} ranks but n_ranks={self.n_ranks}")
+        device = world.device if self.device is None else resolve_device(self.device)
+        coerce = object.__setattr__
+        coerce(self, "group", group)
+        coerce(self, "device", device)
+        coerce(self, "members", tuple(dist.get_process_group_ranks(group)))
+        coerce(self, "rank", dist.get_rank(group))
+
+    def ranks(self):
+        return self.take(np.arange(self.n_ranks, dtype=np.int64))
+
+    def take(self, host_vec):
+        vec = np.ascontiguousarray(host_vec)
+        if vec.shape != (self.n_ranks,):
+            raise ValueError(
+                f"expected a ({self.n_ranks},) host vector, got {vec.shape}"
+            )
+        return _host_vector(vec.tobytes(), vec.dtype.str, self.n_ranks, self.device)[self.rank]
+
+    def exchange(self, x, perm: Sequence[Pair]):
+        from . import dist as _dist
+
+        dst = next((d for s, d in perm if s == self.rank), None)
+        src = next((s for s, d in perm if d == self.rank), None)
+        flat = leaves(x)
+        got = _dist.swap(flat, dst, src, self.group, self.device)
+        if got is None:
+            got = [torch.zeros_like(leaf) for leaf in flat]
+        return unflatten(structure(x), got)
+
+    def bwhere(self, cond, a, b):
+        return torch.where(cond, a, b)
+
+    def leaf_nbytes(self, leaf) -> int:
+        # one process per rank: the leaf is already this rank's local block
+        return int(np.prod(leaf.shape, dtype=np.int64)) * leaf.element_size()
+
+
+ShardMapComm = DistComm     # the reference's name for its production backend

@@ -6,7 +6,10 @@
 alongside every payload and performing the Self-Healing restore rounds.
 :func:`ft_allreduce` is the entry point for arithmetic reductions over the
 same butterfly, and :func:`ft_allreduce_jit` the same reduction as a cached
-program (:mod:`repro_torch.replay`: a CUDA graph on the card).
+program (:mod:`repro_torch.replay`: a CUDA graph on the card; over
+:class:`~repro_torch.collective.comm.DistComm`, an eager per-rank program).
+Every function here runs on either backend: a (P,)-leading stack on
+``SimComm``, this rank's local block on ``DistComm``.
 
 **Fault-free fast path.**  When the host plan proves fault-freeness
 (:attr:`Plan.is_fault_free`), :func:`execute_plan` runs a straight-line
@@ -35,7 +38,7 @@ from repro_torch.kernels import dispatch as _dispatch
 
 from ._tree import leaves, structure, tree_map, unflatten
 from .combiners import Combiner, get_combiner
-from .comm import Comm, SimComm, check_device
+from .comm import Comm, DistComm, SimComm, check_device
 from .faults import NEVER, FaultSpec
 from .packing import pack_sym, unpack_sym
 from .plan import Plan, _split_rounds, make_plan
@@ -109,7 +112,8 @@ def execute_plan(
 ):
     """Run ``plan`` over ``x`` with ``combiner``.  Returns ``(value, valid)``.
 
-    ``x`` is a tree of per-rank payloads with a leading (P,) axis.
+    ``x`` is a tree of per-rank payloads: with a leading (P,) axis on
+    ``SimComm``, this rank's local blocks on ``DistComm``.
     ``value`` is the un-finalized combine (use :func:`ft_allreduce` for mean
     semantics etc.); ``valid`` is the per-rank validity bit, which matches
     ``plan.final_valid`` bit-for-bit.
@@ -243,6 +247,26 @@ def ft_allreduce(
     return combiner.tree_finalize(val, plan.n_ranks), valid
 
 
+def _check_mesh(comm: DistComm, mesh) -> None:
+    """The reference's checks of ``mesh=`` against a ShardMapComm."""
+    if mesh is None:
+        raise ValueError(
+            "ft_allreduce_jit on ShardMapComm needs mesh= (the Mesh "
+            "whose axis the comm permutes over) to build the enclosing "
+            "shard_map program"
+        )
+    if comm.axis not in mesh.axis_names:
+        raise ValueError(
+            f"mesh axes {mesh.axis_names} do not include comm axis "
+            f"{comm.axis!r}"
+        )
+    if mesh.shape[comm.axis] != comm.n_ranks:
+        raise ValueError(
+            f"mesh axis {comm.axis!r} has {mesh.shape[comm.axis]} "
+            f"devices but comm.n_ranks={comm.n_ranks}"
+        )
+
+
 def ft_allreduce_jit(
     x,
     comm: Comm,
@@ -254,32 +278,54 @@ def ft_allreduce_jit(
     fast: bool | None = None,
     mesh=None,
 ):
-    """:func:`ft_allreduce` as a cached program: one per (comm, plan,
-    combiner, payload structure) and the payload's shapes, dtypes and
-    device (:mod:`repro_torch.replay`; a CUDA graph on the card).  A repeat
-    call with the same statics builds nothing: ``trace_count("ft_allreduce")``
-    stays put, and each call counts one ``ft_allreduce`` dispatch.  Its
-    result equals :func:`ft_allreduce`'s bit for bit.  SimComm only: a mesh
-    runs the ranks as separate processes, which waits for DistComm."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "ft_allreduce_jit(mesh=...) runs the butterfly across processes, which "
-            "waits for DistComm (ROADMAP A.3b); pass a SimComm"
-        )
-    if not isinstance(comm, SimComm):
-        raise ValueError(
-            f"ft_allreduce_jit builds a standalone program, which only the SimComm "
-            f"backend supports; got {type(comm).__name__}"
-        )
+    """:func:`ft_allreduce` as a cached program.  A repeat call with the same
+    statics builds nothing: ``trace_count("ft_allreduce")`` stays put, and
+    each call counts one ``ft_allreduce`` dispatch.
+
+    * :class:`~repro_torch.collective.comm.SimComm` — ``x`` carries the
+      leading ``(P,)`` axis; one program per (comm, plan, combiner, payload
+      structure) and the payload's shapes, dtypes and device
+      (:mod:`repro_torch.replay`; a CUDA graph on the card), its result
+      equal to :func:`ft_allreduce`'s bit for bit.  ``mesh`` is ignored.
+    * :class:`~repro_torch.collective.comm.DistComm` (``ShardMapComm``) —
+      pass ``mesh=`` (a :class:`~repro_torch.collective.dist.RankMesh`),
+      checked as the reference checks it.  ``x`` is this rank's ``(1, …)``
+      slice of the reference's ``(P, …)``-leading payload, and so is the
+      result: concatenated over the ranks, the reference's.  One program
+      per (mesh, comm, plan, combiner, fast) and payload signature
+      (:mod:`repro_torch.replay`), run eagerly: a host-staged exchange
+      cannot be captured in a CUDA graph.
+    """
     if plan is None:
         plan = make_plan(variant, comm.n_ranks, fault_spec)
     combiner = get_combiner(op)
     check_device(x, comm)
     struct = structure(x)
+    if isinstance(comm, SimComm):
+        def body(*flat):
+            return ft_allreduce(unflatten(struct, flat), comm, op=combiner, plan=plan, fast=fast)
 
-    def body(*flat):
-        return ft_allreduce(unflatten(struct, flat), comm, op=combiner, plan=plan, fast=fast)
+        _dispatch.note_dispatch("ft_allreduce")
+        return replay.run("ft_allreduce", (comm, plan, combiner, fast), body, tuple(leaves(x)),
+                          layout=struct)
+    if not isinstance(comm, DistComm):
+        raise ValueError(
+            f"ft_allreduce_jit supports SimComm and ShardMapComm, got "
+            f"{type(comm).__name__}"
+        )
+    _check_mesh(comm, mesh)
+    for leaf in leaves(x):
+        if leaf.ndim == 0 or leaf.shape[0] != 1:
+            raise ValueError(
+                f"ft_allreduce_jit(mesh=...) takes this rank's (1, ...) slice of the "
+                f"(P, ...)-leading payload; got a leaf of shape {tuple(leaf.shape)}"
+            )
+
+    def shard_body(*flat):
+        local = tree_map(lambda leaf: leaf[0], unflatten(struct, flat))
+        val, ok = ft_allreduce(local, comm, op=combiner, plan=plan, fast=fast)
+        return tree_map(lambda leaf: leaf[None], val), ok[None]
 
     _dispatch.note_dispatch("ft_allreduce")
-    return replay.run("ft_allreduce", (comm, plan, combiner, fast), body, tuple(leaves(x)),
-                      layout=struct)
+    return replay.run("ft_allreduce_shard", (mesh, comm, plan, combiner, fast), shard_body,
+                      tuple(leaves(x)), layout=struct, trace="ft_allreduce", capture=False)

@@ -16,6 +16,11 @@ own exchange, and the gather's reconstruction lanes ride beside the result,
 so the counters equal :meth:`~repro_torch.collective.coded.CodedPlan.
 message_count` and :meth:`~repro_torch.collective.coded.CodedPlan.
 bytes_on_wire` (``_stacked``) exactly.
+
+Over :class:`~repro_torch.collective.comm.DistComm` every rank wraps its own
+comm and counts the whole perm round (all its messages, each priced by
+``leaf_nbytes`` of the local block), so each rank's counters equal the
+reference's for the same call under ``ShardMapComm``.
 """
 from __future__ import annotations
 

@@ -8,17 +8,17 @@ and keeps the numpy ground truth:
 
   * :mod:`repro_torch.core.tsqr` — a thin facade over :mod:`repro_torch.qr`
     (the TSQR result, the local QR functions, ``form_q``, the deprecated
-    ``tsqr_sim`` shim);
+    ``tsqr_sim``, ``tsqr_shard_map`` and ``tsqr_gram_shard_map`` shims);
   * :mod:`repro_torch.core.ref`  — numpy ground truth.
 
-The reference's ``ShardMapComm``, ``tsqr_shard_map`` and
-``tsqr_gram_shard_map`` run the ranks as separate devices, which waits for
-DistComm (ROADMAP A.3b).
+``ShardMapComm`` is :class:`~repro_torch.collective.comm.DistComm`: one
+process a rank.
 """
 from repro_torch.collective import (
     NEVER,
     FaultSpec,
     Plan,
+    ShardMapComm,
     SimComm,
     Step,
     ft_allreduce,
@@ -28,13 +28,14 @@ from repro_torch.collective import (
     within_tolerance,
 )
 
-from .tsqr import TSQRResult, form_q, tsqr_sim
+from .tsqr import TSQRResult, form_q, tsqr_gram_shard_map, tsqr_shard_map, tsqr_sim
 
 __all__ = [
     "NEVER",
     "FaultSpec",
     "Plan",
     "Step",
+    "ShardMapComm",
     "SimComm",
     "TSQRResult",
     "form_q",
@@ -42,6 +43,8 @@ __all__ = [
     "make_plan",
     "tolerance",
     "total_tolerance",
+    "tsqr_gram_shard_map",
+    "tsqr_shard_map",
     "tsqr_sim",
     "within_tolerance",
 ]

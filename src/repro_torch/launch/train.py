@@ -21,8 +21,8 @@ scenario's expectations::
       --optimizer powersgd --faults shrink_then_rebuild
 
 ``--mesh single|multi`` (the reference's production TPU meshes) and a model
-axis wider than 1 are tensor-parallel layouts, which wait for DistComm
-(ROADMAP A.3b).
+axis wider than 1 are tensor-parallel layouts, which wait for the model
+axis over DistComm (ROADMAP A.3e).
 """
 from __future__ import annotations
 
@@ -103,7 +103,7 @@ def make_mesh(spec: str, sc=None):
     if spec in ("single", "multi"):
         raise NotImplementedError(
             f"--mesh {spec} is a production TPU mesh (data x model over many devices), "
-            "which waits for DistComm (ROADMAP A.3b); use --mesh dx1"
+            "which waits for the model axis over DistComm (ROADMAP A.3e); use --mesh dx1"
         )
     if spec == "auto":
         return ReplicaMesh.of((1, 1), ("data", "model"))

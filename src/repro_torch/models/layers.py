@@ -18,7 +18,7 @@ Conventions, as in the reference:
 
 The reference's mesh layouts (``constrain``, ``_expand_kv``,
 ``residual_axes``) have no meaning on one card without a mesh, where the
-reference returns early; they wait for ROADMAP A.3b.
+reference returns early; they wait for ROADMAP A.3e.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ time with absolute positions, so ring rotation is transparent).
 
 Entry points: :func:`init`, :func:`forward`, :func:`loss_fn`,
 :func:`prefill`, :func:`decode_step`, :func:`init_decode_cache`.  The
-reference's ``param_shardings`` (a mesh layout) waits for ROADMAP A.3b.
+reference's ``param_shardings`` (a mesh layout) waits for ROADMAP A.3e.
 """
 from __future__ import annotations
 

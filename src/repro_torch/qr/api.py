@@ -1,26 +1,33 @@
 """The QR entry facade: one config object, one ``factorize`` call.
 
 :class:`QRConfig` has the reference's fields, enums and validation, so a
-config transfers one to one.  :func:`factorize` routes by input rank:
+config transfers one to one.  :func:`factorize` routes by input rank and
+mesh presence:
 
-  ==================  =====================  ==============================
-  input               ``panel_width=None``   ``panel_width`` an int
-  ==================  =====================  ==============================
-  (P, m_local, n)     TSQR on P ranks        blocked QR on P ranks
-  (B, P, m_local, n)  B TSQRs, one launch    B blocked QRs, fixed-shape
-                      per kernel             pipeline, one launch per sweep
-  ==================  =====================  ==============================
+  ==========================  =====================  ========================
+  input                       ``panel_width=None``   ``panel_width`` an int
+  ==========================  =====================  ========================
+  (P, m_local, n)             TSQR on P ranks        blocked QR on P ranks
+  (B, P, m_local, n)          B TSQRs, one launch    B blocked QRs, fixed-shape
+                              per kernel             pipeline, one launch per
+                                                     sweep
+  (m_local, n) + ``mesh=``    TSQR (``gram=True``:   blocked QR, this rank's
+                              the Gram butterfly),   rows, one process a rank
+                              this rank's rows
+  ==========================  =====================  ========================
 
-All P ranks are simulated on one device.  ``redundancy="coded"`` adds
-``parity`` checksum ranks (:mod:`repro_torch.collective.coded`) to the 3-D
-routes; like the reference, it refuses batches and meshes with
-``ValueError``.  Routes that wait for later slices raise
-``NotImplementedError`` naming their ROADMAP item: meshes (``mesh=``, A.3)
-and the Gram butterfly (``gram=True``, A.3).
+Without a mesh all P ranks are simulated on one device.  With ``mesh=`` (a
+:class:`~repro_torch.collective.dist.RankMesh`) each rank is a process and
+passes its own block; the exchanges cross processes
+(:class:`~repro_torch.collective.comm.DistComm`).  ``redundancy="coded"``
+adds ``parity`` checksum ranks (:mod:`repro_torch.collective.coded`) to the
+3-D routes; like the reference, it refuses batches and meshes with
+``ValueError``.
 
-Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
-when there is none; pass ``device="cpu"`` to run on the CPU (the kernels'
-plain versions).
+Entry points run on the card: ``device=None`` means ``"cuda"`` (under a
+mesh, the mesh's device, the card unless its world was started on the CPU)
+and raises when there is none; pass ``device="cpu"`` to run on the CPU (the
+kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -231,7 +238,9 @@ class QRConfig:
 
 def warn_deprecated_entry(name: str) -> None:
     """The ``DeprecationWarning`` of the legacy kwarg entry points
-    (``tsqr_sim``, ``blocked_qr_sim``, ``blocked_qr_batched``)."""
+    (``tsqr_sim``, ``blocked_qr_sim``, ``blocked_qr_batched`` and the mesh
+    shims ``tsqr_shard_map``, ``tsqr_gram_shard_map``,
+    ``blocked_qr_shard_map``)."""
     warnings.warn(
         f"{name}() is deprecated: build a repro_torch.qr.api.QRConfig and call "
         "repro_torch.qr.api.factorize(a, config) instead (same drivers, same "
@@ -250,6 +259,21 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
     return a.to(device).contiguous()
 
 
+def _mesh_block(a, mesh, device) -> torch.Tensor:
+    """This rank's block on ``device`` (``None``: the mesh's device)."""
+    return _as_tensor(a, mesh.device if device is None else resolve_device(device))
+
+
+def _route_error(a, mesh) -> str:
+    return (
+        f"cannot route input of shape {getattr(a, 'shape', None)} with "
+        f"mesh={'present' if mesh is not None else 'absent'}: factorize "
+        "expects (P, m_local, n) row blocks or a batched (B, P, m_local, n) "
+        "stack without a mesh, or this rank's (m_local, n) block with mesh= "
+        "(and its row-distribution axis=)"
+    )
+
+
 def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
               mesh=None, axis: str | None = None):
     """Factorize ``a`` (numpy array or tensor) under ``config``.
@@ -261,6 +285,19 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
     :class:`~repro_torch.qr.blocked.PanelFaultSchedule` for the blocked QR.
     Returns :class:`~repro_torch.qr.tsqr.TSQRResult` or
     :class:`~repro_torch.qr.blocked.BlockedQRResult`.
+
+    **Under** ``mesh=`` (a :class:`~repro_torch.collective.dist.RankMesh`;
+    ``axis`` defaults to its sole axis) every rank of the mesh calls
+    ``factorize`` with the same config and faults.  A process holds only
+    its own rows, so the route differs from the reference's in one way:
+    ``a`` is **this rank's (m_local, n) block**, not the global (m, n)
+    matrix, and the result holds this rank's slice of each of the
+    reference's outputs: ``r`` (1, n, n), ``valid`` (1,), ``q``
+    (m_local, n) or None, and the reference's ``plan`` or ``reports``.
+    Concatenated in rank order over the ranks, these are exactly the
+    reference's (P, n, n), (P,) and (m, n).  On a world of one rank the
+    local and the global input are the same.  ``gram=True`` selects the
+    Gram-butterfly TSQR, a mesh-only route.
     """
     from . import blocked as _blocked
     from . import tsqr as _tsqr
@@ -274,24 +311,6 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
             "defaults) rather than passing loose kwargs"
         )
     coded = config.redundancy is Redundancy.CODED
-    if mesh is not None and coded:
-        raise ValueError(
-            "redundancy='coded' is a simulated-ranks scheme: the coded "
-            "world holds P data ranks plus `parity` checksum ranks, and "
-            "the decode indexes the gather root's row — neither maps "
-            "onto the fixed-size shard_map mesh; run the 3-D simulated "
-            "entry (or redundancy='butterfly' under the mesh)"
-        )
-    if mesh is not None or axis is not None:
-        raise NotImplementedError(
-            "mesh= runs the ranks as separate processes, which waits for "
-            "DistComm (ROADMAP A.3); pass (P, m_local, n) blocks without a mesh"
-        )
-    if config.gram:
-        raise NotImplementedError(
-            "gram=True (the Gram-butterfly TSQR) is a mesh-only driver, which "
-            "waits for DistComm (ROADMAP A.3)"
-        )
     tsqr_mode = config.panel_width is None
     want = FaultSpec if tsqr_mode else _blocked.PanelFaultSchedule
     if faults is not None and not isinstance(faults, want):
@@ -300,12 +319,37 @@ def factorize(a, config: QRConfig | None = None, *, faults=None, device=None,
             f"(panel_width={config.panel_width}), got {type(faults).__name__}"
         )
     ndim = getattr(a, "ndim", None)
-    if ndim not in (3, 4):
+    if mesh is not None:
+        if coded:
+            raise ValueError(
+                "redundancy='coded' is a simulated-ranks scheme: the coded "
+                "world holds P data ranks plus `parity` checksum ranks, and "
+                "the decode indexes the gather root's row — neither maps "
+                "onto the fixed-size shard_map mesh; run the 3-D simulated "
+                "entry (or redundancy='butterfly' under the mesh)"
+            )
+        if ndim != 2:
+            raise ValueError(_route_error(a, mesh))
+        if axis is None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(
+                    f"mesh has axes {mesh.axis_names}; pass axis= to pick "
+                    "the row-sharding axis"
+                )
+            axis = mesh.axis_names[0]
+        block = _mesh_block(a, mesh, device)
+        if tsqr_mode:
+            if config.gram:
+                return _tsqr._factorize_gram_shard(block, config, mesh=mesh, axis=axis)
+            return _tsqr._factorize_shard(block, config, mesh=mesh, axis=axis, fault_spec=faults)
+        return _blocked._factorize_shard_map(block, config, mesh=mesh, axis=axis, faults=faults)
+    if config.gram:
         raise ValueError(
-            f"cannot route input of shape {getattr(a, 'shape', None)}: "
-            "factorize expects (P, m_local, n) row blocks or a batched "
-            "(B, P, m_local, n) stack"
+            "gram=True (the Gram-butterfly TSQR) is a shard_map-only "
+            "driver; pass mesh= (and axis=), or use gram=False"
         )
+    if ndim not in (3, 4):
+        raise ValueError(_route_error(a, mesh))
     if ndim == 4 and coded:
         raise ValueError(
             "batched factorization is the fault-free hot path, where "

@@ -51,7 +51,13 @@ only the reductions run over the ``P + parity`` world.
 
 The reference's ``lax.scan`` becomes a Python loop over the same fixed
 shapes, captured whole; the eager driver and every faulted or coded call
-stay eager, as in the reference.  ``ShardMapComm`` waits for a later slice.
+stay eager, as in the reference.
+
+Under ``mesh=`` each rank is a process holding its own (m_local, n) rows
+(:class:`~repro_torch.collective.comm.DistComm`): the same two drivers run
+on the local block, the butterflies and the replica fetches cross
+processes, and each driver is one cached per-rank program
+(:mod:`repro_torch.qr._shard`), run eagerly.
 """
 from __future__ import annotations
 
@@ -65,7 +71,7 @@ import torch
 from repro_torch import replay
 from repro_torch.collective._tree import tree_map
 from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
-from repro_torch.collective.comm import Comm, SimComm
+from repro_torch.collective.comm import Comm, DistComm, SimComm
 from repro_torch.collective.engine import ft_allreduce, recover_payload
 from repro_torch.collective.faults import FaultSpec, within_tolerance
 from repro_torch.collective.plan import Plan, make_plan
@@ -75,6 +81,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import traffic as _traffic
 from repro_torch.kernels.backend import backend_of
 
+from ._shard import dummy_q
 from .api import (
     Fuse,
     Pipeline,
@@ -82,13 +89,14 @@ from .api import (
     Recover,
     Redundancy,
     _as_tensor,
+    _mesh_block,
     resolve_device,
     warn_deprecated_entry,
 )
 from .panel import FUSED_PANEL_COMBINER, PanelFactorizer, chol_r
 
 __all__ = ["PIPELINE_NAME", "BlockedQRResult", "PanelFaultSchedule", "PanelReport",
-           "blocked_qr_batched", "blocked_qr_sim", "panel_widths"]
+           "blocked_qr_batched", "blocked_qr_shard_map", "blocked_qr_sim", "panel_widths"]
 
 PIPELINE_NAME = "blocked_qr_pipeline"    # trace/dispatch counter key
 
@@ -166,10 +174,11 @@ class PanelReport:
 class BlockedQRResult:
     """Outcome of a fault-tolerant blocked QR.
 
-    ``r``       — (P, n, n), or (B, P, n, n) for a batch: the assembled
-                  upper-triangular factor on every rank.
-    ``valid``   — (P,) (or (B, P)) strict survivors: valid through every
-                  panel's reductions without replica recovery.
+    ``r``       — (P, n, n), (B, P, n, n) for a batch, or under ``mesh=``
+                  this rank's (1, n, n): the assembled upper-triangular
+                  factor on every rank.
+    ``valid``   — (P,), (B, P) or this rank's (1,): strict survivors, valid
+                  through every panel's reductions without replica recovery.
     ``q``       — optional per-rank (m_local, n) orthonormal factor.
     ``reports`` — per-panel :class:`PanelReport`.
     ``detected``— coded runs only: (P,) device bool, OR over all panels,
@@ -661,11 +670,12 @@ def _setup(m_local: int, n: int, p: int, config: QRConfig, faults: PanelFaultSch
     return widths, reports, config.factorizer()
 
 
-def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, p: int) -> None:
+def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, lead: tuple) -> None:
     """The reference's ``kernel:<op>`` traces of the pipeline's sweeps: its
     scan traces the prime and the trailing sweep once, however many panels
-    run, with the config's ``block_rows``; a batched pipeline's matrix axis
-    is hidden by its vmap, so the plain route sees (P, m, ·) operands."""
+    run, with the config's ``block_rows``.  ``lead`` is the leading dims the
+    plain route sees: (P,) on simulated ranks (a batched pipeline's matrix
+    axis is hidden by its vmap), none in a rank's own body under a mesh."""
     b, k_panels = widths[0], len(widths)
     m, n = mn
     n_pad = b * k_panels
@@ -673,7 +683,7 @@ def _note_sweep_traces(mn, dtype, widths, canon: QRConfig, p: int) -> None:
     def like(*shape):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    kw = dict(use_pallas=canon.use_pallas, block_rows=canon.block_rows, lead=(p,),
+    kw = dict(use_pallas=canon.use_pallas, block_rows=canon.block_rows, lead=lead,
               wrapper=False)
     if n_pad == n:
         kops._trace("panel_cross", (like(m, n),), (b,), **kw)
@@ -724,7 +734,7 @@ def _run_pipeline(a, widths, reports, pf: PanelFactorizer, config: QRConfig, *,
         return (r.transpose(0, 1).contiguous(), valid.expand(bsz, p).clone(),
                 None if q is None else q.transpose(0, 1).contiguous())
 
-    _note_sweep_traces(a.shape[-2:], a.dtype, widths, canon, p)
+    _note_sweep_traces(a.shape[-2:], a.dtype, widths, canon, (p,))
     t0 = _dispatch.trace_count(PIPELINE_NAME)
     with _traffic.suppress(), _dispatch.suppress():
         out = replay.run(PIPELINE_NAME, (p, widths, canon, batched), body, (a,))
@@ -777,6 +787,58 @@ def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> BlockedQRResu
                            panel_width=config.panel_width)
 
 
+def _factorize_shard_map(block: torch.Tensor, config: QRConfig, *, mesh, axis: str,
+                         faults: PanelFaultSchedule | None = None) -> BlockedQRResult:
+    """The production path: ``block`` is this rank's (m_local, n) rows of A,
+    row-distributed over ``mesh`` axis ``axis``.
+
+    Fault-free plans take the fixed-shape pipeline (one cached per-rank
+    program per (mesh, P, widths, canonical config), counted as the
+    ``blocked_qr_pipeline`` trace and dispatch, with the same per-call
+    records as the simulated pipeline); faulty plans the eager driver (one
+    per (mesh, P, reports, widths, canonical config), counted as
+    ``blocked_qr_shard_map``), whose replica fetches cross processes.
+    Returns this rank's r (1, n, n), valid (1,) and q (m_local, n) or None.
+    """
+    p = mesh.shape[axis]
+    m_local, n = block.shape
+    widths, reports, pf = _setup(m_local, n, p, config, faults)
+    config = _tuned_config(config, m_local, n, block.dtype, block.device)
+    canon = config.canonical()
+    comm = DistComm(p, axis, mesh.group, block.device)
+    want_q = config.compute_q
+    if _resolve_pipeline(config.pipeline, reports):
+        plan = make_plan(config.variant, p)
+
+        def body(a_blk):
+            r, valid, q = _pipeline_body(
+                a_blk, comm, plan, widths, pf, local_r=canon.local_r, compute_q=want_q,
+                use_pallas=canon.use_pallas, fused=canon.fuse is not Fuse.OFF,
+                block_rows=canon.block_rows)
+            return r[None], valid[None], q if want_q else dummy_q(a_blk)
+
+        _note_sweep_traces((m_local, n), block.dtype, widths, canon, ())
+        t0 = _dispatch.trace_count(PIPELINE_NAME)
+        with _traffic.suppress(), _dispatch.suppress():
+            r, valid, q = replay.run("shard_pipeline", (mesh, axis, p, widths, canon), body,
+                                     (block,), trace=PIPELINE_NAME, capture=False)
+        _note_pipeline((p, m_local, n), block.dtype, widths,
+                       _dispatch.trace_count(PIPELINE_NAME) - t0, reports, pf.reorth)
+    else:
+        def body(a_blk):
+            r, valid, q, _ = _blocked_body(
+                a_blk, comm, reports, widths, pf, local_r=canon.local_r, compute_q=want_q,
+                use_pallas=canon.use_pallas, block_rows=canon.block_rows)
+            return r[None], valid[None], q if want_q else dummy_q(a_blk)
+
+        _dispatch.note_dispatch("blocked_qr_shard_map")
+        r, valid, q = replay.run("blocked_qr_shard_map", (mesh, axis, p, reports, widths, canon),
+                                 body, (block,), capture=False)
+        _note_eager_reductions("blocked_qr_shard_map", reports, widths, n, pf)
+    return BlockedQRResult(r=r, valid=valid, q=q if want_q else None, reports=reports,
+                           panel_width=config.panel_width)
+
+
 # ---------------------------------------------------------------------------
 # Legacy kwarg entry points (deprecated shims over the implementations)
 # ---------------------------------------------------------------------------
@@ -815,3 +877,23 @@ def blocked_qr_batched(a_batch, *, panel_width: int, variant: str = "redundant",
         compute_q=compute_q, use_pallas=use_pallas, interpret=interpret, fuse=fuse,
     )
     return _factorize_batched(_as_tensor(a_batch, resolve_device(device)), config)
+
+
+def blocked_qr_shard_map(a_local, *, mesh, axis: str, panel_width: int,
+                         variant: str = "redundant", faults: PanelFaultSchedule | None = None,
+                         compute_q: bool = False, local_r: str = "chol", reorth: int = 1,
+                         use_pallas: bool = False, interpret: bool | None = None,
+                         recover: str = "replica", pipeline: str = "auto",
+                         fuse: str = "auto", device=None) -> BlockedQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    and call :func:`repro_torch.qr.api.factorize` with ``mesh=``/``axis=``
+    instead (the same drivers, the same bits).  ``a_local`` is this rank's
+    (m_local, n) block, moved to ``device`` (``None``: the mesh's)."""
+    warn_deprecated_entry("blocked_qr_shard_map")
+    config = QRConfig(
+        panel_width=panel_width, variant=variant, local_r=local_r, reorth=reorth,
+        compute_q=compute_q, use_pallas=use_pallas, interpret=interpret,
+        pipeline=pipeline, fuse=fuse, recover=recover,
+    )
+    return _factorize_shard_map(_mesh_block(a_local, mesh, device), config, mesh=mesh, axis=axis,
+                                faults=faults)

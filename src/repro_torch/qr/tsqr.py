@@ -11,9 +11,15 @@ four variants:
   * ``selfhealing`` — Alg. 4–6, additionally respawns dead ranks from a
                       replica at every level.
 
-All P ranks live on one device with a leading (P,) axis
-(:class:`~repro_torch.collective.comm.SimComm`), so each CholeskyQR2 sweep
-is one kernel launch for every rank.
+On simulated ranks all P ranks live on one device with a leading (P,)
+axis (:class:`~repro_torch.collective.comm.SimComm`), so each CholeskyQR2
+sweep is one kernel launch for every rank.  Under ``mesh=`` each rank is a
+process (:class:`~repro_torch.collective.comm.DistComm`) factoring its own
+``(m_local, n)`` block, and the exchanges cross processes: the
+reference's production path, with the Gram-butterfly TSQR
+(``gram=True``) beside it.  Each mesh route is one cached per-rank program
+(:mod:`repro_torch.qr._shard`) per statics, counted as the reference's
+``tsqr_shard_map`` / ``tsqr_gram_shard_map`` traces and dispatches.
 
 ``redundancy="coded"`` replaces the butterfly by the checksum-coded
 reduction (:mod:`repro_torch.collective.coded`): ``parity`` checksum ranks
@@ -35,22 +41,34 @@ import torch
 
 from repro_torch import replay
 from repro_torch.collective.coded import CodedPlan, execute_coded, make_coded_plan
-from repro_torch.collective.comm import SimComm
+from repro_torch.collective.comm import Comm, DistComm, SimComm
+from repro_torch.collective.engine import ft_allreduce
 from repro_torch.collective.faults import FaultSpec
 from repro_torch.collective.plan import Plan, make_plan
 from repro_torch.kernels import dispatch as _dispatch
 
-from .api import QRConfig, Redundancy, _as_tensor, resolve_device, warn_deprecated_entry
+from ._shard import dummy_q
+from .api import (
+    QRConfig,
+    Redundancy,
+    _as_tensor,
+    _mesh_block,
+    resolve_device,
+    warn_deprecated_entry,
+)
+from .panel import chol_r, chunked_gram, form_q
 
-__all__ = ["TSQRResult", "tsqr_sim"]
+__all__ = ["TSQRResult", "tsqr_gram_shard_map", "tsqr_shard_map", "tsqr_sim"]
 
 
 @dataclasses.dataclass
 class TSQRResult:
     """Per-rank outcome of a fault-tolerant TSQR.
 
-    ``r``        — (P, n, n), or (B, P, n, n) for a batch.
-    ``valid``    — who holds a correct final R (the paper's semantics).
+    ``r``        — (P, n, n), (B, P, n, n) for a batch, or under ``mesh=``
+                   this rank's (1, n, n).
+    ``valid``    — who holds a correct final R (the paper's semantics):
+                   (P,), (B, P), or this rank's (1,).
     ``q``        — optional per-rank (m_local, n) orthonormal factor.
     ``plan``     — the communication plan that was executed: a butterfly
                    :class:`~repro_torch.collective.plan.Plan` or a
@@ -165,8 +183,78 @@ def _factorize_batched(a_batch: torch.Tensor, config: QRConfig) -> TSQRResult:
     return TSQRResult(r=r, valid=valid, q=q, plan=plan)
 
 
+def _mesh_comm(mesh, axis: str, block: torch.Tensor) -> tuple[int, DistComm]:
+    p = mesh.shape[axis]
+    return p, DistComm(p, axis, mesh.group, block.device)
+
+
+def _factorize_shard(block: torch.Tensor, config: QRConfig, *, mesh, axis: str,
+                     fault_spec: FaultSpec | None = None) -> TSQRResult:
+    """The production path: ``block`` is this rank's (m_local, n) rows of A,
+    row-distributed over ``mesh`` axis ``axis``.
+
+    Returns this rank's r (1, n, n) (a copy of R where valid), valid (1,)
+    and q (m_local, n) or None.  The plan is host-computed from
+    ``fault_spec`` on every rank alike."""
+    p, comm = _mesh_comm(mesh, axis, block)
+    plan = make_plan(config.variant, p, fault_spec)
+    if config.compute_q and not plan.final_valid.all():
+        raise ValueError(
+            "compute_q requires an all-valid plan (fault-free, or "
+            "self-healing within tolerance)"
+        )
+    pf = config.factorizer()
+    want_q = config.compute_q
+
+    def body(a_blk):
+        r, valid = pf.reduce_r(a_blk, comm, plan)
+        q = None
+        if want_q:
+            q, r = pf.form_q(a_blk, r, comm)
+        return r[None], valid[None], q if want_q else dummy_q(a_blk)
+
+    _dispatch.note_dispatch("tsqr_shard_map")
+    r, valid, q = replay.run("tsqr_shard_map", (mesh, axis, plan, pf, want_q), body, (block,),
+                             capture=False)
+    return TSQRResult(r=r, valid=valid, q=q if want_q else None, plan=plan)
+
+
+def gram_tsqr(a: torch.Tensor, comm: Comm, reorth: int = 1):
+    """The Gram butterfly on either backend: the float32 Gram of each
+    rank's rows (:func:`~repro_torch.qr.panel.chunked_gram`), a
+    ``gram_sum`` all-reduce over the redundant butterfly, the Cholesky R
+    with a positive diagonal, then ``reorth`` CholeskyQR polish passes in
+    :func:`~repro_torch.qr.panel.form_q`.  Returns ``(r, q)``.
+
+    Per level the combine is an n×n add instead of a QR of a stacked 2n×n
+    pair, and the wire carries the n(n+1)/2 triangle.  κ(A)² enters the
+    Gram, so the polish pass is what makes Q orthonormal; certified for
+    κ(A) ≲ 1/√ε, like CholeskyQR2."""
+    g, _ = ft_allreduce(chunked_gram(a), comm, op="gram_sum")
+    q, r = form_q(a, chol_r(g), comm, reorth)
+    return r, q
+
+
+def _factorize_gram_shard(block: torch.Tensor, config: QRConfig, *, mesh,
+                          axis: str) -> TSQRResult:
+    """The Gram-butterfly TSQR on this rank's (m_local, n) block
+    (:func:`gram_tsqr`), fault-free by construction: valid (1,) is true and
+    the plan is the redundant one the all-reduce rides."""
+    p, comm = _mesh_comm(mesh, axis, block)
+
+    def body(a_blk):
+        r, q = gram_tsqr(a_blk, comm, config.reorth)
+        return r[None], q
+
+    _dispatch.note_dispatch("tsqr_gram_shard_map")
+    r, q = replay.run("tsqr_gram_shard_map", (mesh, axis, p, config.reorth), body,
+                      (block,), capture=False)
+    return TSQRResult(r=r, valid=torch.ones((1,), dtype=torch.bool, device=block.device), q=q,
+                      plan=make_plan("redundant", p))
+
+
 # ---------------------------------------------------------------------------
-# Legacy kwarg entry point (a deprecated shim over the implementation)
+# Legacy kwarg entry points (deprecated shims over the implementations)
 # ---------------------------------------------------------------------------
 
 def tsqr_sim(a_blocks, *, variant: str = "redundant", fault_spec: FaultSpec | None = None,
@@ -183,3 +271,27 @@ def tsqr_sim(a_blocks, *, variant: str = "redundant", fault_spec: FaultSpec | No
                       compute_q=compute_q)
     return _factorize_sim(_as_tensor(a_blocks, resolve_device(device)), config,
                           fault_spec=fault_spec)
+
+
+def tsqr_gram_shard_map(a_local, *, mesh, axis: str, reorth: int = 1, device=None) -> TSQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    with ``gram=True`` and call :func:`repro_torch.qr.api.factorize` with
+    ``mesh=`` instead (the same driver, the same bits).  ``a_local`` is this
+    rank's (m_local, n) block."""
+    warn_deprecated_entry("tsqr_gram_shard_map")
+    config = QRConfig(panel_width=None, gram=True, reorth=reorth)
+    return _factorize_gram_shard(_mesh_block(a_local, mesh, device), config, mesh=mesh, axis=axis)
+
+
+def tsqr_shard_map(a_local, *, mesh, axis: str, variant: str = "redundant",
+                   fault_spec: FaultSpec | None = None, compute_q: bool = False, reorth: int = 1,
+                   local_qr="jnp", device=None) -> TSQRResult:
+    """Deprecated kwarg shim — build a :class:`~repro_torch.qr.api.QRConfig`
+    (``panel_width=None``) and call :func:`repro_torch.qr.api.factorize`
+    with ``mesh=``/``axis=`` instead (the same driver, the same bits).
+    ``a_local`` is this rank's (m_local, n) block."""
+    warn_deprecated_entry("tsqr_shard_map")
+    config = QRConfig(panel_width=None, variant=variant, local_r=local_qr, reorth=reorth,
+                      compute_q=compute_q)
+    return _factorize_shard(_mesh_block(a_local, mesh, device), config, mesh=mesh, axis=axis,
+                            fault_spec=fault_spec)

@@ -17,8 +17,11 @@ later call *runs* it:
     A later call copies its inputs into the static buffers, replays the
     graph on the current stream and returns clones of the static outputs.
     A capture that fails raises: nothing falls back to the eager route.
-  * **On the CPU**, or on the card inside :func:`eager`, the program is the
-    body itself, run eagerly on every call.
+  * **On the CPU**, on the card inside :func:`eager`, or where the entry
+    point passes ``capture=False``, the program is the body itself, run
+    eagerly on every call.  The mesh routes pass it: their bodies exchange
+    through :mod:`torch.distributed`, and a host-staged gloo exchange cannot
+    be captured in a CUDA graph.
 
 Both routes note the body's kernel-op dispatches and traffic only on the
 call that builds the program (the reference notes them while it traces),
@@ -64,6 +67,12 @@ BOUNDS = {
     "tsqr_coded": 64,            # repro/qr/tsqr.py::_compiled_tsqr_coded
     "ft_allreduce": 256,         # repro/collective/engine.py::_ft_allreduce_compiled
     "coded_allreduce": 256,      # repro/collective/coded.py::_coded_allreduce_compiled
+    # the per-rank programs of the mesh routes, never captured
+    "ft_allreduce_shard": 256,   # repro/collective/engine.py::_ft_allreduce_shard_compiled
+    "tsqr_shard_map": 64,        # repro/qr/tsqr.py::_compiled_tsqr_shard
+    "tsqr_gram_shard_map": 64,   # repro/qr/tsqr.py::_compiled_tsqr_gram_shard
+    "shard_pipeline": 64,        # repro/qr/blocked.py::_compiled_shard_pipeline
+    "blocked_qr_shard_map": 64,  # repro/qr/blocked.py::_compiled_shard_general
 }
 
 
@@ -161,13 +170,16 @@ def _entry(name: str, key: Hashable) -> _Entry:
     return entry
 
 
-def run(name: str, key: Hashable, body: Callable, inputs: tuple, layout: Hashable = None):
+def run(name: str, key: Hashable, body: Callable, inputs: tuple, layout: Hashable = None, *,
+        trace: str | None = None, capture: bool = True):
     """``body(*inputs)`` as the cached program of entry point ``name``,
     statics ``key``, and the inputs' ``layout`` (a payload's structure),
     shapes, dtypes and device.  ``inputs`` are tensors (or None); the result
-    is a tree (tuples, lists) of tensors and None."""
+    is a tree (tuples, lists) of tensors and None.  A build counts one
+    ``trace`` (default ``name``); ``capture=False`` runs the body eagerly on
+    the card too."""
     device = next(t.device for t in inputs if t is not None)
-    captured = device.type == "cuda" and not _EAGER
+    captured = capture and device.type == "cuda" and not _EAGER
     entry = _entry(name, key)
     sig = (layout, _signature(inputs))
     if captured and sig in entry.graphs:
@@ -182,7 +194,7 @@ def run(name: str, key: Hashable, body: Callable, inputs: tuple, layout: Hashabl
     traced = sig not in entry.built
     if traced:
         entry.built.add(sig)
-        dispatch.note_trace(name)
+        dispatch.note_trace(trace or name)
     if not captured:
         if traced:
             return body(*inputs)

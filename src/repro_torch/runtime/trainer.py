@@ -20,7 +20,7 @@ The replicas are simulated on one device (a
 :class:`~repro_torch.collective.comm.SimComm` whose rank axis is the
 replica axis), and the mesh is a
 :class:`~repro_torch.runtime.elastic.ReplicaMesh` topology; a model axis
-wider than 1 (tensor parallelism) waits for ROADMAP A.3b.  The step runs
+wider than 1 (tensor parallelism) waits for ROADMAP A.3e.  The step runs
 eagerly; one step is built per mesh equivalence class and counts the
 reference's jit trace (``dispatch.note_trace("train_step")``) on its first
 call for each input signature, and every call counts one
@@ -261,8 +261,8 @@ class Trainer:
         if "model" in mesh.axis_names and mesh.size("model") > 1:
             raise NotImplementedError(
                 f"a model axis of {mesh.size('model')} is a tensor-parallel mesh, which "
-                "waits for DistComm (ROADMAP A.3b); the replicas of one card are the data "
-                "axis"
+                "waits for the model axis over DistComm (ROADMAP A.3e); the replicas of one "
+                "card are the data axis"
             )
         self.mesh = mesh
         fp = mesh_fingerprint(mesh)

@@ -11,9 +11,11 @@ Metric names, gates, directions, units and tolerances are equal
 (``state_from_reference``).  ``roofline``: the ``cqr2_speedup_r_*`` ratios
 equal, the ``_hbm_s_`` times in the ratio of the two data-sheet bandwidths
 (the reference prices a TPU v5e's 819e9 B/s, the port an H100's 3.35e12).
-The guard returns 0 and prints the reference's 18 lines less its four mesh
-lines, which wait for DistComm (ROADMAP A.3b); the reference's 26 s guard is
-not run here, its lines are the literal list below.
+The guard returns 0 and prints the reference's 18 lines (its four mesh
+checks on a mesh of this process alone); run inside a world of four CPU
+ranks it prints the 19th, the reference's ``ShardMapComm`` line, from rank
+0.  The reference's 26 s guard is not run here, its lines are the literal
+list below.
 """
 import numpy as np
 import pytest
@@ -55,6 +57,7 @@ REFERENCE_GUARD = (
        "tuned:blocked_qr_pipeline", "tuned:blocked_qr_pipeline"]
 )
 MESH_LINES = (4, 5, 6, 7)     # the two blocked_qr_shard_map checks, tsqr_(gram_)shard_map
+SHARD_MAP_LINE = 12           # where the ShardMapComm ft_allreduce line joins
 
 
 def _smoke(name):
@@ -195,12 +198,33 @@ def test_roofline_has_no_tpu_constant():
 
 
 def test_guard_prints_the_reference_lines_less_the_mesh_lines(capsys):
+    """All 18 lines now, the mesh lines included (the name stays)."""
     assert dispatch.guard(device="cpu") == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("[retrace-guard]")]
-    want = [n for i, n in enumerate(REFERENCE_GUARD) if i not in MESH_LINES]
-    assert len(REFERENCE_GUARD) == 18 and len(want) == 14
+    assert len(REFERENCE_GUARD) == 18
+    assert [REFERENCE_GUARD[i] for i in MESH_LINES] == [
+        "blocked_qr_pipeline", "blocked_qr_pipeline", "tsqr_shard_map", "tsqr_gram_shard_map"]
+    assert lines == [f"[retrace-guard] {name}: ok" for name in REFERENCE_GUARD]
+
+
+def test_guard_in_a_four_rank_world_adds_the_shard_map_line(tmp_path):
+    """Every rank runs the guard, ranks 0-3 the ``ShardMapComm`` check over
+    their (1, 32) rows, and rank 0 alone prints: the reference's 18 lines
+    with its ``ft_allreduce`` ``ShardMapComm`` line where the reference
+    appends it, after ``kernel:trailing_update``."""
+    from repro_torch.collective.dist import run_ranks
+
+    import dist_parity
+
+    results = run_ranks(dist_parity.guard_in_world, 4, device="cpu", rendezvous_dir=tmp_path)
+    assert [failures for failures, _ in results] == [0, 0, 0, 0]
+    want = list(REFERENCE_GUARD)
+    want.insert(SHARD_MAP_LINE, "ft_allreduce")
+    assert want[SHARD_MAP_LINE - 1] == "kernel:trailing_update"
+    lines = [ln for ln in results[0][1].splitlines() if ln.startswith("[retrace-guard]")]
     assert lines == [f"[retrace-guard] {name}: ok" for name in want]
+    assert all(text == "" for _, text in results[1:])
 
 
 def test_guard_counts_a_retrace(capsys):

@@ -113,5 +113,7 @@ def test_routing_errors(rng):
                   faults=PanelFaultSchedule.of(panel={0: {1: 1}}), device="cpu")
     with pytest.raises(ValueError, match="pipeline-eligible"):
         factorize(blocks[None], QRConfig(panel_width=4, variant="tree"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
+    # the mesh route takes this rank's 2-D block: row blocks with a mesh
+    # raise the reference's route error
+    with pytest.raises(ValueError, match="cannot route input of shape"):
         factorize(blocks, QRConfig(panel_width=4), mesh=object(), device="cpu")

@@ -5,8 +5,10 @@ Each shim warns ``DeprecationWarning`` naming the port's ``QRConfig`` and
 ``factorize``; returns R, Q and the validity bits bit for bit equal to
 ``factorize`` with the equal ``QRConfig`` (port against port); and is within
 ``R_TOL`` of max|R| of the reference's shim on the same numpy input, the
-validity bits exact.  ``repro_torch.core.__all__`` is the reference's less
-the names that wait for DistComm (ROADMAP A.3b).
+validity bits exact.  ``repro_torch.core.__all__`` and
+``repro_torch.qr.__all__`` hold every name of the reference's, its mesh
+shims and ``ShardMapComm`` included (the mesh routes themselves are held in
+``test_torch_dist_qr.py``).
 """
 import warnings
 
@@ -32,6 +34,7 @@ from repro_torch.qr import QRConfig, factorize  # noqa: E402
 # in their own summation orders (~1e-6 read at these sizes)
 R_TOL = 1e-5
 # names of the reference's facade that run the ranks as separate devices
+# (in the port: separate processes)
 MESH_NAMES = {"ShardMapComm", "tsqr_gram_shard_map", "tsqr_shard_map"}
 
 P, M, N = 4, 48, 20
@@ -217,23 +220,27 @@ def test_blocked_qr_batched_refuses_a_pipeline_ineligible_variant():
 # ---------------------------------------------------------------------------
 
 def test_qr_exports_the_shims_the_reference_has_but_its_mesh_shims():
-    assert set(jqr.__all__) - set(qr.__all__) == {
-        "blocked_qr_shard_map", "tsqr_gram_shard_map", "tsqr_shard_map"}
-    assert {"tsqr_sim", "blocked_qr_sim", "blocked_qr_batched"} <= set(qr.__all__)
+    # the name stays; the mesh shims are exported now too
+    assert set(jqr.__all__) <= set(qr.__all__)
+    assert {"tsqr_sim", "blocked_qr_sim", "blocked_qr_batched", "blocked_qr_shard_map",
+            "tsqr_gram_shard_map", "tsqr_shard_map"} <= set(qr.__all__)
     assert set(qr.__all__) - set(jqr.__all__) == {"Redundancy"}
 
 
 def test_core_all_is_the_reference_less_the_mesh_names():
-    assert set(core.__all__) == set(jcore.__all__) - MESH_NAMES
+    # the name stays; the mesh names are exported now too
+    assert set(core.__all__) == set(jcore.__all__)
     assert set(jcore.__all__) & MESH_NAMES == MESH_NAMES
     for name in core.__all__:
         assert getattr(core, name) is not None, name
     assert core.tsqr_sim is qr.tsqr_sim and core.TSQRResult is qr.TSQRResult
     assert core.form_q is qr.form_q
+    assert core.tsqr_shard_map is qr.tsqr_shard_map
+    assert core.tsqr_gram_shard_map is qr.tsqr_gram_shard_map
 
 
 def test_core_tsqr_facade_names():
-    assert set(core_tsqr.__all__) == set(jcore_tsqr.__all__) - MESH_NAMES
+    assert set(core_tsqr.__all__) == set(jcore_tsqr.__all__)
     assert set(core_tsqr.local_qr_fns) == set(jcore_tsqr.local_qr_fns)
     for name in ("qr_r_jnp", "qr_r_cqr2", "qr_r_cqr2_pallas", "_resolve_local_qr"):
         assert callable(getattr(core_tsqr, name)), name

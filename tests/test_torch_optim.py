@@ -5,7 +5,7 @@ Every case of the reference's ``tests/test_optim.py`` runs on both sides,
 with the reference's own assertions applied to the port as well, except
 ``test_zero1_state_shardings_divisibility``: ``adamw.state_shardings``
 returns ZeRO-1 ``PartitionSpec``s of a device mesh, which the
-simulated-ranks backend has no counterpart for (ROADMAP A.3b).
+simulated-ranks backend has no counterpart for (ROADMAP A.3e).
 
 Exact: plans, validity bits, NaN positions, PowerSGD's byte counts, the
 errors raised.  Within a tolerance: numbers.  ``TOL`` is the reference's

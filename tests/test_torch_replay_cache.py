@@ -34,6 +34,11 @@ REFERENCE_COMPILERS = {
     "tsqr_coded": jtsqr._compiled_tsqr_coded,
     "ft_allreduce": jengine._ft_allreduce_compiled,
     "coded_allreduce": jcoded._coded_allreduce_compiled,
+    "ft_allreduce_shard": jengine._ft_allreduce_shard_compiled,
+    "tsqr_shard_map": jtsqr._compiled_tsqr_shard,
+    "tsqr_gram_shard_map": jtsqr._compiled_tsqr_gram_shard,
+    "shard_pipeline": jblocked._compiled_shard_pipeline,
+    "blocked_qr_shard_map": jblocked._compiled_shard_general,
 }
 
 

@@ -123,9 +123,9 @@ def test_launcher_blank_run_on_four_replicas(tmp_path, capsys):
 
 def test_launcher_refuses_tensor_parallel_meshes_and_unknown_scenarios(tmp_path):
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="A.3b"):
+        with pytest.raises(NotImplementedError, match="A.3e"):
             train.make_mesh(mesh)
-    with pytest.raises(NotImplementedError, match="A.3b"):
+    with pytest.raises(NotImplementedError, match="A.3e"):
         train.build_trainer(train.parse_args(["--arch", "olmo-1b", "--mesh", "2x2",
                                               "--device", "cpu", "--ckpt-dir", str(tmp_path)]))
     with pytest.raises(SystemExit, match="trainer scenarios: buddy_pair_wipe, "

@@ -187,7 +187,7 @@ def test_trainer_device_defaults_to_the_card(tmp_path):
 
 def test_model_axis_waits_for_distcomm(tmp_path):
     cfg = get_config("olmo-1b").smoke(n_layers=1)
-    with pytest.raises(NotImplementedError, match="A.3b"):
+    with pytest.raises(NotImplementedError, match="A.3e"):
         trainer.Trainer(cfg, trainer.TrainerConfig(ckpt_dir=str(tmp_path)),
                         elastic.ReplicaMesh.of((2, 2)),
                         DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8), device="cpu")

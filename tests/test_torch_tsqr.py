@@ -153,13 +153,20 @@ def test_config_fields_match_reference():
 
 
 @pytest.mark.parametrize("config,kwargs,item", [
-    (QRConfig(), {"mesh": object()}, "A.3"),
-    (QRConfig(gram=True), {}, "A.3"),
+    (QRConfig(), {"mesh": object()}, "cannot route"),
+    (QRConfig(gram=True), {}, "shard_map-only"),
 ])
 def test_later_slices_raise_not_implemented(config, kwargs, item):
+    """Both routes are ported now; what is left is the reference's own
+    refusal: row blocks with a mesh, and the Gram butterfly without one,
+    raise its ValueError (the name stays)."""
     blocks = np.zeros((2, 8, 2), np.float32)
-    with pytest.raises(NotImplementedError, match=item):
+    jconfig = JQRConfig(gram=config.gram)
+    with pytest.raises(ValueError, match=item) as want:
+        jfactorize(jnp.asarray(blocks), jconfig, **kwargs)
+    with pytest.raises(ValueError, match=item) as got:
         factorize(blocks, config, device="cpu", **kwargs)
+    assert str(got.value).split(":")[0] == str(want.value).split(":")[0]
 
 
 @pytest.mark.parametrize("fields,shape,kwargs", [
@@ -170,7 +177,7 @@ def test_later_slices_raise_not_implemented(config, kwargs, item):
 ])
 def test_coded_refusals_match_reference(fields, shape, kwargs):
     """The coded scheme refuses batches and meshes with the reference's
-    ValueError (the mesh refusal comes before the port's A.3 one)."""
+    ValueError (the mesh refusal comes before the route check)."""
     blocks = np.zeros(shape, np.float32)
     with pytest.raises(ValueError) as want:
         jfactorize(jnp.asarray(blocks), JQRConfig(redundancy="coded", **fields), **kwargs)
