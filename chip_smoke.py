@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths, each driven with the launch counts set to 0 just before it
+Thirteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * **TSQR** (the paper's workload): a tall-skinny matrix row-distributed over
@@ -66,6 +66,15 @@ and read just after:
   ``panel_cross``, ``pad_cross``, ``trailing_update`` and ``gram``, and
   the kernel layer's explicit-Q CholeskyQR2 of each rank's block on
   ``apply_right``; every rank reads its own launch counts.
+* **PowerSGD across processes** (``repro_torch.launch.powersgd_dp``, the
+  counterpart of the reference's ``examples/powersgd_dp.py``): the same 8
+  ranks as a 2 × 4 data × model mesh, the example trained at its widths
+  for 80 steps with a model rank lost at step 40, and ``compress_grad`` at
+  an olmo-1b MLP projection's gradient, over the axis collectives
+  (``dist.psum``, ``pmean``, ``all_gather``) and ``ShardMapComm(4,
+  "model")``.  Its local QR is ``torch.linalg`` (the reference's ``"jnp"``
+  route) and ``form_q`` runs without ``use_pallas``: no port kernel; the
+  launch counts stay 0.
 
 Elsewhere all P ranks live on the one card with a leading (P,) axis, so
 each sweep is one kernel launch for every rank.
@@ -215,6 +224,22 @@ Phases (each raises on failure; the script then exits non-zero):
    peak memory per rank, and the retrace guard inside the world with its
    ``ShardMapComm`` line; then drop the programs its SimComm comparisons
    cached (``replay.clear()``), so the later phases start cold as before.
+13b. (in phase 13's world, after its cases) PowerSGD across processes:
+   each of the 8 ranks runs the entry point's own rank body
+   (``powersgd_dp.rank_main``: the 2 × 4 data × model mesh of
+   ``launch/mesh.py::make_smoke_mesh``, and the example's training at
+   DIN 64, DH 128, DOUT 32, rank 8, 80 steps, LR 0.3,
+   ``selfhealing``, error feedback, model rank 1 lost at exchange 1 of
+   step 40); print the example's lines through ``powersgd_dp.report`` and
+   check its own rule (final loss under a quarter of the first), every
+   rank valid at the fault step, the byte counts against 4·r·(m·M + n)
+   and 4·m·M·n, ĝ and w1 the same bits on each data line and w2 and S̄ on
+   all eight; ``compress_grad`` at ``tests/test_spmd.py:121``'s sizes
+   within 2e-3 of the dense data-mean; ``compress_grad`` on each rank's
+   rows of a 2048 × 8192 olmo-1b MLP gradient (model = 4, distinct per
+   data replica) at ranks 8 and 32, timed beside SimComm(4) on the same
+   block size, with the wire's exchange and host-staging milliseconds and
+   the peak allocation per rank; no port kernel launched on any rank.
 
 The inputs are drawn on the card from fixed seeds.  float32 products run in
 full float32 (TF32 off).  The last line is ``{"ok": true, "device": {...}}``.
@@ -504,6 +529,14 @@ MESH_TIMEOUT = 600
 MESH_KERNELS = ("gram", "fused_apply_gram", "apply_right", "trailing_update", "panel_cross",
                 "pad_cross")
 
+# Phase 13b: PowerSGD across processes, the same 8 ranks viewed as a 2 x 4
+# data x model mesh (repro_torch.launch.powersgd_dp, the counterpart of
+# examples/powersgd_dp.py).
+PSGD_MESH_SPMD = (2, 4, 8, 12, 3)     # D, M, m_loc, n, r of tests/test_spmd.py:121
+PSGD_MESH_SPMD_TOL = 2e-3             # that test's rtol = atol
+PSGD_MESH_RANKS = (8, 32)             # compress_grad's rank at olmo-1b's MLP projection
+PSGD_MESH_SEEDS = {"spmd": 13100, "olmo": 13101, "basis": 13102}
+
 
 class SmokeFailure(AssertionError):
     pass
@@ -537,6 +570,7 @@ def main() -> int:
     smoke.build()
     card = smoke.card()
     smoke.mesh_path()
+    smoke.psgd_mesh_path()
     smoke.kernel_checks()
     smoke.blocked_kernel_checks()
     smoke.combine_gram_path()
@@ -620,18 +654,7 @@ def mesh_rank(mesh, spec: dict) -> dict:
         return host(q.mT @ q)
 
     def wall(fn) -> float:
-        """Median host-clock ms of warm calls, each ending in a synchronize
-        and a barrier of the world."""
-        samples = []
-        for _ in range(MESH_REPEATS):
-            sync()
-            dist.barrier()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            dist.barrier()
-            samples.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(samples)
+        return _rank_wall_ms(fn, dev)
 
     peaks: dict[str, float] = {}
 
@@ -757,7 +780,154 @@ def mesh_rank(mesh, spec: dict) -> dict:
         failures = guard_case.guard()
     out["guard"] = (failures, buf.getvalue(), time.perf_counter() - t_guard)
     out["rank_s"] = time.perf_counter() - t_rank
+    del data, x, sym
+
+    # -- phase 13b in the same world: PowerSGD on a data x model mesh --------
+    out["psgd"] = psgd_mesh_rank(mesh, spec["psgd"])
     return out
+
+
+def _rank_wall_ms(fn, dev) -> float:
+    """Median host-clock ms of ``MESH_REPEATS`` warm calls of ``fn`` in a
+    rank, each ending in a synchronize and a barrier of the world."""
+    import torch
+    import torch.distributed as dist
+
+    samples = []
+    for _ in range(MESH_REPEATS):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def psgd_mesh_rank(mesh, spec: dict) -> dict:
+    """Phase 13b's body in one rank of phase 13's world (:func:`mesh_rank`
+    calls it on every rank after phase 13's cases).
+
+    The rank runs the entry point's own rank body
+    (``powersgd_dp.rank_main``: the 2 x 4 data x model mesh of
+    ``launch/mesh.py::make_smoke_mesh``, the example's widths, 80 steps, the
+    fault at step 40); then, on a 2 x 4 mesh of its own, it runs
+    ``compress_grad`` at ``tests/test_spmd.py:121``'s sizes against the
+    dense data-mean, and times ``compress_grad`` on its rows of an olmo-1b
+    MLP projection's gradient (distinct per data replica) at each rank of
+    ``PSGD_MESH_RANKS``, with the wire's exchange and staging seconds and
+    the peak allocation of those calls."""
+    import torch
+
+    from repro_torch.collective import ShardMapComm
+    from repro_torch.collective import dist as rank_world
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import powersgd_dp
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import powersgd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev)
+    counts = dispatch.launches
+    t_rank = time.perf_counter()
+
+    def psum_data(v):
+        return rank_world.psum(v, "data", grid)
+
+    def psum_model(v):
+        return rank_world.psum(v, "model", grid)
+
+    def randn(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    counts.reset()
+    rank_world.wire.reset()
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["example"] = powersgd_dp.rank_main(mesh)
+    out["example_s"] = time.perf_counter() - t0
+    out["example_wire"] = rank_world.wire.as_dict()
+
+    grid = make_smoke_mesh(powersgd_dp.D, powersgd_dp.M)
+    D, M = grid.shape["data"], grid.shape["model"]
+    d, m = grid.index("data"), grid.index("model")
+    comm = ShardMapComm(M, "model")
+    out.update({"rank": grid.rank, "coords": (d, m)})
+
+    # -- tests/test_spmd.py:121: a rank-r gradient per data replica ---------
+    _, _, m_loc, n, r = spec["spmd"]
+    u = randn((D, M * m_loc, r), PSGD_MESH_SEEDS["spmd"])
+    v = randn((n, r), PSGD_MESH_SEEDS["spmd"] + 1)
+    q0 = randn((n, r), PSGD_MESH_SEEDS["spmd"] + 2)
+    g = torch.einsum("dmr,nr->dmn", u, v)
+    rows = slice(m * m_loc, (m + 1) * m_loc)
+    ghat, _, stats = powersgd.compress_grad(
+        g[d, rows].clone(), {"q": q0, "e": None}, comm,
+        cfg=powersgd.PowerSGDConfig(rank=r, error_feedback=False),
+        psum_data=psum_data, psum_model=psum_model, n_data=D)
+    mean = g.mean(0)[rows]
+    out["spmd"] = (float((ghat - mean).abs().max()),
+                   bool(((ghat - mean).abs() <= PSGD_MESH_SPMD_TOL
+                         + PSGD_MESH_SPMD_TOL * mean.abs()).all()),
+                   bool(stats["valid"]), ghat.cpu().numpy())
+    del u, g, mean
+
+    # -- compress_grad on this rank's rows of an olmo-1b MLP projection ------
+    n_rows, n_cols = spec["olmo"]
+    m_loc = n_rows // M
+    blk = randn((n_rows, n_cols), PSGD_MESH_SEEDS["olmo"] + d)[m * m_loc:(m + 1) * m_loc].clone()
+    sync()
+    if on_card:
+        torch.cuda.empty_cache()
+    timed = {}
+    for rank in spec["ranks"]:
+        cfg = powersgd.PowerSGDConfig(rank=rank)
+        state = {"q": randn((n_cols, rank), PSGD_MESH_SEEDS["basis"]),
+                 "e": torch.zeros_like(blk)}
+
+        def call(cfg=cfg, state=state):
+            return powersgd.compress_grad(blk, state, comm, cfg=cfg, psum_data=psum_data,
+                                          psum_model=psum_model, n_data=D)
+
+        ghat, new, stats = call()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        rank_world.wire.reset()
+        ms = _rank_wall_ms(call, dev)
+        wire = rank_world.wire.as_dict()
+        timed[rank] = {
+            "ms": ms, "exchange_ms": wire["exchange_seconds"] * 1e3 / MESH_REPEATS,
+            "staging_ms": wire["staging_seconds"] * 1e3 / MESH_REPEATS,
+            "bytes_sent": wire["bytes_sent"] // MESH_REPEATS,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0,
+            "valid": bool(stats["valid"]), "finite": bool(ghat.isfinite().all()),
+            "bytes": (stats["data_bytes_compressed"], stats["data_bytes_dense"]),
+            "ghat_sha": _sha(ghat), "q_sha": _sha(new["q"]),
+        }
+        del ghat, new, state
+    out["olmo"] = timed
+    sync()
+    out["launches"] = counts.as_dict()
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 class Smoke:
@@ -3664,10 +3834,13 @@ class Smoke:
         torch.cuda.empty_cache()
         log(f"[dist] gloo, host-staged, {MESH_RANKS} ranks on {self.card_name}")
         shapes = {"allreduce": MESH_ALLREDUCE, **MESH_TSQR, **BLOCKED_SHAPES}
+        psgd = {"spmd": PSGD_MESH_SPMD, "olmo": (self.olmo["d_model"], self.olmo["d_ff"]),
+                "ranks": PSGD_MESH_RANKS}
         ranks = rank_world.run_ranks(mesh_rank, MESH_RANKS, device=DEVICE,
-                                     args=({"shapes": shapes, "panel": PANEL},),
+                                     args=({"shapes": shapes, "panel": PANEL, "psgd": psgd},),
                                      timeout=MESH_TIMEOUT)
         t_world = time.perf_counter() - t_phase
+        self.psgd_ranks = [out.pop("psgd") for out in ranks]    # phase 13b checks them
         check([out["rank"] for out in ranks] == list(range(MESH_RANKS)), "ranks out of order")
 
         def rel(a, b) -> float:
@@ -3883,9 +4056,143 @@ class Smoke:
             f"({max(out['guard'][2] for out in ranks):.1f} s a rank)")
         replay.clear()       # the later phases capture their programs cold
         log(f"[dist] ranks took {max(out['cases_s'] for out in ranks):.1f} s for the cases, "
-            f"{max(out['rank_s'] for out in ranks):.1f} s in all; the world "
-            f"{t_world:.1f} s from spawn to the last result; phase 13 took "
+            f"{max(out['rank_s'] for out in ranks):.1f} s in all before phase 13b's body; the "
+            f"world {t_world:.1f} s from spawn to the last result, phase 13b's body included; "
+            f"phase 13 took "
             f"{time.perf_counter() - t_phase:.1f} s")
+
+    def psgd_mesh_path(self) -> None:
+        """Phase 13b: check what :func:`psgd_mesh_rank` returned in each of
+        phase 13's ranks, on a 2 x 4 data x model mesh of that world: the
+        entry point's example through its own report and loss
+        check, the validity bits of the fault step, the byte counts against
+        the reference's formulas, ĝ and the weights the same bits on each
+        line where the reference makes them so, ``compress_grad`` at
+        ``tests/test_spmd.py:121``'s sizes within that test's tolerance of
+        the dense data-mean, no port kernel launched; then time
+        ``compress_grad`` on SimComm(M) on the same block size."""
+        import io
+
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.collective import SimComm
+        from repro_torch.launch import powersgd_dp
+        from repro_torch.optim import powersgd
+
+        t_phase = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        D, M = powersgd_dp.D, powersgd_dp.M
+        olmo = (self.olmo["d_model"], self.olmo["d_ff"])
+        log(f"[psgd dist] phase 13's {MESH_RANKS} ranks as a {D} x {M} data x model mesh on "
+            f"{self.card_name}, gloo, host-staged")
+        ranks = self.psgd_ranks
+        check([out["rank"] for out in ranks] == list(range(MESH_RANKS)), "ranks out of order")
+        check([out["coords"] for out in ranks] == [divmod(i, M) for i in range(MESH_RANKS)],
+              f"mesh coordinates {[out['coords'] for out in ranks]}")
+
+        def bits(a, b) -> bool:
+            return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+                a.view(np.int32), b.view(np.int32))
+
+        # -- the entry point's example at its widths ---------------------------
+        ex = [out["example"] for out in ranks]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ok = powersgd_dp.report(ex)
+        for line in filter(None, buf.getvalue().splitlines()):
+            log(f"[psgd dist] {line}")
+        check(ok, f"the example's loss check: final {ex[0]['losses'][-1]:.5f} against the first "
+              f"{ex[0]['losses'][0]:.5f}")
+        check(all(np.isfinite(e["losses"]).all() for e in ex), "a non-finite loss")
+        valid = [e["valid_at_fault"] for e in ex]
+        check(valid == [True] * MESH_RANKS, f"validity at the fault step {valid}")
+        m_rows = powersgd_dp.DIN // M
+        want = (4 * powersgd_dp.RANK * (m_rows * M + powersgd_dp.DH),
+                4 * m_rows * M * powersgd_dp.DH)
+        check(all(e["bytes"] == want for e in ex), f"byte counts {ex[0]['bytes']} != {want}")
+        for mi in range(M):
+            line = [i for i in range(MESH_RANKS) if i % M == mi]
+            for key in ("g1_hat", "w1"):     # e is each data replica's own
+                check(all(bits(ex[i][key], ex[line[0]][key]) for i in line),
+                      f"model index {mi}: {key} differs across the data line {line}")
+        for key in ("w2", "q"):
+            check(all(bits(e[key], ex[0][key]) for e in ex), f"{key} differs across the ranks")
+        check(all(e["losses"] == ex[0]["losses"] for e in ex), "the ranks' losses differ")
+        step_ms = [statistics.median(e["step_s"]) * 1e3 for e in ex]
+        wire = [out["example_wire"] for out in ranks]
+        log(f"[psgd dist] example ({powersgd_dp.STEPS} steps, fault at "
+            f"{powersgd_dp.STEPS // 2}): every rank valid at the fault step, bytes {want} == "
+            f"4·r·(m·M + n), 4·m·M·n; ĝ and w1 the same bits on each data line, w2 and S̄ on "
+            f"all {MESH_RANKS}; a step {max(step_ms):.3f} ms (median, slowest rank, host clock "
+            f"to the loss's float()); {max(out['example_s'] for out in ranks):.1f} s a rank; "
+            f"wire {sum(w['messages'] for w in wire)} messages, "
+            f"{sum(w['bytes_sent'] for w in wire)} bytes sent, staging "
+            f"{max(w['staging_seconds'] for w in wire):.3f} s and exchanges "
+            f"{max(w['exchange_seconds'] for w in wire):.3f} s a rank at most")
+
+        # -- compress_grad at tests/test_spmd.py:121's sizes -------------------
+        errs = [out["spmd"][0] for out in ranks]
+        check(all(out["spmd"][1] and out["spmd"][2] for out in ranks),
+              f"compress_grad at {PSGD_MESH_SPMD}: ĝ vs the dense data-mean {max(errs):.3e} "
+              f"past {PSGD_MESH_SPMD_TOL} (+ rel), or a rank invalid")
+        for mi in range(M):
+            check(bits(ranks[mi]["spmd"][3], ranks[M + mi]["spmd"][3]),
+                  f"compress_grad at {PSGD_MESH_SPMD}: ĝ differs across data line {mi}")
+        log(f"[psgd dist] compress_grad (D, M, m_loc, n, r) = {PSGD_MESH_SPMD}: ĝ against the "
+            f"dense data-mean {max(errs):.3e} max abs (limit {PSGD_MESH_SPMD_TOL} + "
+            f"{PSGD_MESH_SPMD_TOL}·|mean|), every rank valid, the same bits on each data line")
+
+        # -- compress_grad at olmo-1b's MLP projection, against SimComm --------
+        n_rows, n_cols = olmo
+        m_loc = n_rows // M
+        sim = SimComm(M, DEVICE)
+        stack = self.randn((n_rows, n_cols), PSGD_MESH_SEEDS["olmo"]).reshape(M, m_loc, n_cols)
+        for rank in PSGD_MESH_RANKS:
+            rows = [out["olmo"][rank] for out in ranks]
+            want = (4 * rank * (m_loc * M + n_cols), 4 * m_loc * M * n_cols)
+            check(all(t["valid"] and t["finite"] and t["bytes"] == want for t in rows),
+                  f"compress_grad {n_rows} x {n_cols} rank {rank}: valid, finite, bytes {want}: "
+                  f"{[(t['valid'], t['finite'], t['bytes']) for t in rows]}")
+            for mi in range(M):
+                check(rows[mi]["ghat_sha"] == rows[M + mi]["ghat_sha"],
+                      f"compress_grad rank {rank}: ĝ differs across data line {mi}")
+            check(len({t["q_sha"] for t in rows}) == 1, f"compress_grad rank {rank}: S̄ differs")
+            cfg = powersgd.PowerSGDConfig(rank=rank)
+            state = {"q": self.randn((n_cols, rank), PSGD_MESH_SEEDS["basis"]),
+                     "e": torch.zeros_like(stack)}
+
+            def sim_call(cfg=cfg, state=state):
+                return powersgd.compress_grad(
+                    stack, state, sim, cfg=cfg,
+                    psum_data=lambda v: v, n_data=1,
+                    psum_model=lambda v: v.sum(0, keepdim=True).expand(v.shape))
+
+            sim_ms, lo, hi = self._median_ms(sim_call)
+            slow = max(rows, key=lambda t: t["ms"])
+            log(f"[psgd dist] compress_grad {n_rows} x {n_cols} (olmo-1b's MLP projection), rows "
+                f"over model = {M}, data = {D}, rank {rank}: {slow['ms']:.3f} ms a call (median of "
+                f"{MESH_REPEATS}, slowest rank, host clock to a synchronize and a barrier), of it "
+                f"exchanges {slow['exchange_ms']:.3f} ms and host staging "
+                f"{slow['staging_ms']:.3f} ms; {slow['bytes_sent']} bytes sent a rank a call; "
+                f"peak allocation a rank (GB) {[round(t['peak_gb'], 3) for t in rows]} | "
+                f"SimComm({M}) on data replica 0's {M} x {m_loc} x {n_cols} stack, one process, "
+                f"no data-axis sum: {sim_ms:.3f} ms (min {lo:.3f}, max {hi:.3f}, 5 warm runs) "
+                f"on {self.card_name}")
+            del state
+        del stack
+        total = dict.fromkeys(ranks[0]["launches"], 0)
+        for i, out in enumerate(ranks):
+            check(not any(out["launches"].values()),
+                  f"rank {i} launched a port kernel on the PowerSGD path: {out['launches']}")
+            for k, v in out["launches"].items():
+                total[k] += v
+        self.launches["psgd_mesh"] = total
+        log(f"[psgd dist] no port kernel launched on any rank (form_q without use_pallas, the "
+            f"local QR on torch.linalg, as the reference's 'jnp' route); its body took "
+            f"{max(out['rank_s'] for out in ranks):.1f} s a rank inside phase 13's world; its "
+            f"checks and SimComm's times here {time.perf_counter() - t_phase:.2f} s")
 
     def kernel_rows(self) -> list[dict]:
         rows = []

@@ -162,8 +162,14 @@ class DistComm(Comm):
     """One process per rank: this rank's values are 0-d tensors and local
     blocks, and :meth:`exchange` crosses processes.
 
-    ``group`` is the process group of the ``n_ranks`` ranks (``None``: the
-    rank world's, :func:`repro_torch.collective.dist.init_rank_world`);
+    ``group`` is the process group of the ``n_ranks`` ranks.  ``None``
+    takes this rank's line along ``axis`` of the newest mesh with that
+    axis built here (:func:`repro_torch.collective.dist.make_rank_mesh`:
+    ``ShardMapComm(4, "model")`` on a 2 × 4 data × model mesh is this
+    rank's model line), else the rank world's group where the world's axis
+    is ``axis`` (:func:`~repro_torch.collective.dist.init_rank_world`), and
+    raises ``ValueError`` otherwise
+    (:func:`~repro_torch.collective.dist.resolve_line`);
     ``device`` where this rank computes (``None``: the world's device).
     The payload travels as described in :mod:`repro_torch.collective.dist`:
     staged through pinned host memory over gloo on the card, as it is over
@@ -188,7 +194,8 @@ class DistComm(Comm):
                 "DistComm needs a rank world: call "
                 "repro_torch.collective.dist.init_rank_world (or run_ranks) first"
             )
-        group = dist.group.WORLD if self.group is None else self.group
+        group = _dist.resolve_line(self.axis, self.n_ranks).group if self.group is None \
+            else self.group
         size = dist.get_world_size(group)
         if size != self.n_ranks:
             raise ValueError(f"the process group has {size} ranks but n_ranks={self.n_ranks}")

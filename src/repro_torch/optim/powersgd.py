@@ -16,8 +16,13 @@ compression round:
 
 Data-axis bytes per step: r·(m+n)·4 instead of m·n·4.
 
-Written against :class:`~repro_torch.collective.comm.Comm`: the ranks are
-a leading (P,) axis on a :class:`SimComm`, on the gradient's device.
+Written against :class:`~repro_torch.collective.comm.Comm`: on a
+:class:`SimComm` the ranks are a leading (P,) axis, on the gradient's
+device; across processes each rank passes its own block,
+``ShardMapComm(M, "model")`` over its model line and the axis sums of a
+data × model mesh (:func:`repro_torch.collective.dist.psum`), as the
+reference runs it under ``shard_map`` (``python -m
+repro_torch.launch.powersgd_dp``).
 """
 from __future__ import annotations
 
@@ -86,10 +91,14 @@ def compress_grad(
     n_data: int,
     fault_spec: FaultSpec | None = None,
 ):
-    """One PowerSGD round.  ``g``: per-rank (P, m_loc, n) blocks, distinct
-    per data replica.  ``psum_data`` / ``psum_model``: axis sums.  Returns
-    (ĝ, new_state, stats) with ĝ the decompressed mean gradient and
-    ``stats["valid"]`` the butterfly's per-rank validity bits.
+    """One PowerSGD round.  ``g``: per-rank (P, m_loc, n) blocks on a
+    SimComm, or this rank's (m_loc, n) block on a ``DistComm`` over the
+    model line; distinct per data replica.  ``psum_data`` / ``psum_model``:
+    axis sums (``dist.psum(v, "data", mesh)`` across processes, which every
+    rank of a line gets as the same bits, so ĝ is the same on every data
+    replica).  Returns (ĝ, new_state, stats) with ĝ the decompressed mean
+    gradient and ``stats["valid"]`` the butterfly's validity bits (this
+    rank's across processes).
     """
     gf = g.to(torch.float32)
     if cfg.error_feedback and state["e"] is not None:

@@ -1,7 +1,9 @@
-"""Shared cases of the mesh-route parity tests (``test_torch_dist.py`` and
-``test_torch_dist_qr.py``): the cases of the reference's own SPMD tests
-(``tests/test_spmd.py``), computed once per test session on each side
-(:func:`both_sides`).
+"""Shared cases of the mesh-route parity tests (``test_torch_dist.py``,
+``test_torch_dist_qr.py`` and ``test_torch_dist_powersgd.py``): the cases
+of the reference's own SPMD tests (``tests/test_spmd.py``) and of
+``examples/powersgd_dp.py``, computed once per test session on each side
+(:func:`both_sides`), in three parts: ``"allreduce"``, ``"qr"`` and
+``"powersgd"`` (the last on a 2 × 4 data × model view of the same world).
 
 * The port runs them in one world of :data:`P` CPU ranks
   (:func:`repro_torch.collective.dist.run_ranks`): :func:`port_cases` is
@@ -9,7 +11,7 @@
   strings and dicts.  This module imports neither JAX nor the port at
   import time, so the spawned ranks load only torch.
 * The reference runs them under ``shard_map`` over :data:`P` forced host
-  devices in two subprocesses, one a part (this module run as a script
+  devices in three subprocesses, one a part (this module run as a script
   with ``XLA_FLAGS`` set), and returns its global outputs.
 
 Both sides draw the same numpy inputs and make the same calls in the same
@@ -39,6 +41,24 @@ COUNTED = (("sum", "redundant", None), ("sum", "replace", DEATHS),
 SCHEDULE = dict(panel={1: {2: 1}}, update={2: {5: 1}})  # tests/test_spmd.py:97
 
 
+# The PowerSGD part: a (D, M) data x model view of the same world
+PSGD = dict(D=2, M=4, m_loc=8, n=12, r=3)           # tests/test_spmd.py:121
+# (label, error feedback, deaths, variant)
+PSGD_RUNS = (("plain", False, None, "redundant"), ("ef", True, None, "redundant"),
+             ("selfhealing", False, {1: 1}, "selfhealing"),
+             ("redundant", False, {1: 1}, "redundant"))
+AXES = ("data", "model")
+MESH_CALLS = (("production", "make_production_mesh", {}),
+              ("production_multi_pod", "make_production_mesh", {"multi_pod": True}),
+              ("tsqr", "make_tsqr_mesh", {}),
+              ("tsqr_multi_pod", "make_tsqr_mesh", {"multi_pod": True}),
+              ("smoke_4x4", "make_smoke_mesh", {"data": 4, "model": 4}))
+SMOKE_MESHES = ((1, 1), (2, 2))
+# examples/powersgd_dp.py's widths and settings
+EXAMPLE = dict(D=2, M=4, DIN=64, DH=128, DOUT=32, BATCH=256, RANK=8, STEPS=80, LR=0.3)
+EXAMPLE_STEPS, EXAMPLE_FAULT = 6, 3
+
+
 def _key(deaths) -> str:
     return "none" if not deaths else str(sorted(deaths.items()))
 
@@ -66,6 +86,50 @@ def qr_inputs(ref) -> dict[str, np.ndarray]:
         "blocked": np.random.default_rng(3).standard_normal((P, 24, 15)).astype(np.float32),
         "wide": ref.random_tall_skinny(np.random.default_rng(5), P, 32, 6),
     }
+
+
+def powersgd_inputs() -> dict[str, np.ndarray]:
+    """The PowerSGD part's payloads: a distinct rank-r gradient per data
+    replica (D, M·m_loc, n) as in ``tests/test_spmd.py:121``, the start
+    basis, an error buffer, one (3, 5) block a rank for the axis
+    collectives (rank 6's holds a NaN) and a cotangent a rank for each
+    axis' gathered block."""
+    D, M, m_loc, n, r = (PSGD[k] for k in ("D", "M", "m_loc", "n", "r"))
+    rng = np.random.default_rng(17)
+    u = rng.standard_normal((D, M * m_loc, r), dtype=np.float32)
+    v = rng.standard_normal((n, r), dtype=np.float32)
+    coll = rng.standard_normal((P, 3, 5), dtype=np.float32)
+    coll[6, 0, 1] = np.nan
+    return {"g": np.einsum("dmr,nr->dmn", u, v), "q0": rng.standard_normal((n, r), dtype=np.float32),
+            "e0": 0.1 * rng.standard_normal((D, M * m_loc, n), dtype=np.float32),
+            "coll": coll,
+            "cot_data": rng.standard_normal((P, D * 3, 5), dtype=np.float32),
+            "cot_model": rng.standard_normal((P, M * 3, 5), dtype=np.float32)}
+
+
+def example_inputs() -> dict[str, np.ndarray]:
+    """The example's data and initial state at its widths, from a numpy
+    seed (both sides get these arrays)."""
+    ex = EXAMPLE
+    rng = np.random.default_rng(23)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    w_true1, w_true2 = normal(ex["DIN"], ex["DH"]) / 8, normal(ex["DH"], ex["DOUT"]) / 8
+    x = normal(ex["D"], ex["BATCH"], ex["DIN"])
+    return {"x": x, "y": np.maximum(x @ w_true1, 0) @ w_true2,
+            "w1": normal(ex["DIN"], ex["DH"]) * 0.05, "w2": normal(ex["DH"], ex["DOUT"]) * 0.05,
+            "q1": normal(ex["DH"], ex["RANK"])}
+
+
+def _error(fn) -> str | None:
+    """``fn()``'s error as "Type: message", or None when it returns."""
+    try:
+        fn()
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +313,82 @@ def port_qr(mesh) -> dict:
     return out
 
 
+def port_powersgd(mesh) -> dict:
+    """This rank's outputs of the PowerSGD part, on a (D, M) data x model
+    mesh laid over the world."""
+    import torch
+
+    from repro_torch.collective import FaultSpec, ShardMapComm
+    from repro_torch.collective.dist import all_gather, pmean, psum
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import powersgd_dp
+    from repro_torch.optim import powersgd
+
+    out: dict = {"rank": mesh.rank}
+    # no data x model mesh yet: the world's 1-D "rows" mesh has no model line
+    out["refused"] = {(n, axis): _error(lambda n=n, axis=axis: ShardMapComm(n, axis))
+                      for n, axis in ((4, "model"), (8, "model"))}
+    out["mesh_errors"] = {name: _error(lambda fn=fn, kw=kw: getattr(launch_mesh, fn)(**kw))
+                          for name, fn, kw in MESH_CALLS}
+    smoke = {}
+    for dims in SMOKE_MESHES:
+        small = launch_mesh.make_smoke_mesh(*dims)
+        smoke[dims] = None if small is None else (small.shape, small.members)
+    out["smoke"] = smoke
+    D, M, m_loc, n, r = (PSGD[k] for k in ("D", "M", "m_loc", "n", "r"))
+    grid = launch_mesh.make_smoke_mesh(D, M)
+    d, m = grid.index("data"), grid.index("model")
+    out["grid"] = (grid.shape, grid.members, grid.rank, d, m,
+                   grid.line("data").members, grid.line("model").members)
+    comms = {}
+    for size, axis in ((4, "model"), (2, "data"), (8, "rows"), (8, "model"), (4, "data"),
+                       (4, "rows"), (2, "pod")):
+        try:
+            c = ShardMapComm(size, axis)
+            comms[(size, axis)] = (c.members, c.rank, c.n_ranks)
+        except ValueError as e:
+            comms[(size, axis)] = f"ValueError: {e}"
+    out["comms"] = comms
+
+    ins = powersgd_inputs()
+    me = grid.rank
+    x = torch.from_numpy(ins["coll"][me])
+    coll = {}
+    for axis in AXES:
+        coll[("psum", axis)] = _np(psum(x, axis, grid))
+        coll[("pmean", axis)] = _np(pmean(x, axis, grid))
+        coll[("all_gather", axis)] = _np(all_gather(x, axis, grid))
+        var = x.clone().requires_grad_()
+        cot = torch.from_numpy(ins[f"cot_{axis}"][me])
+        coll[("grad", axis)] = _np(torch.autograd.grad((all_gather(var, axis, grid) * cot).sum(),
+                                                       var)[0])
+    out["coll"] = coll
+
+    rows = slice(m * m_loc, (m + 1) * m_loc)
+    g, e0 = torch.from_numpy(ins["g"][d, rows]), torch.from_numpy(ins["e0"][d, rows])
+    comm = ShardMapComm(M, "model")
+    runs = {}
+    for label, ef, deaths, variant in PSGD_RUNS:
+        cfg = powersgd.PowerSGDConfig(rank=r, error_feedback=ef, variant=variant)
+        state = {"q": torch.from_numpy(ins["q0"]), "e": e0 if ef else None}
+        ghat, new, stats = powersgd.compress_grad(
+            g, state, comm, cfg=cfg, psum_data=lambda v: psum(v, "data", grid),
+            psum_model=lambda v: psum(v, "model", grid), n_data=D,
+            fault_spec=FaultSpec.of(deaths) if deaths else None)
+        runs[label] = (_np(ghat), _np(new["q"]), _np(new["e"]), bool(stats["valid"]),
+                       stats["data_bytes_compressed"], stats["data_bytes_dense"])
+    out["psgd"] = runs
+    out["example"] = powersgd_dp.train(grid, example_inputs(), EXAMPLE_STEPS, EXAMPLE_FAULT)
+    full = powersgd_dp.rank_main(mesh)     # the entry point's own rank body
+    out["example_full"] = {k: full[k] for k in ("losses", "valid_at_fault", "bytes")}
+    # a smaller data x model mesh built after the 2 x 4 ones: every rank,
+    # inside it or not, resolves the model axis on it
+    launch_mesh.make_smoke_mesh(2, 2)
+    out["after_smaller"] = {(size, axis): _error(lambda size=size, axis=axis: ShardMapComm(
+        size, axis).members) for size, axis in ((4, "model"), (2, "model"))}
+    return out
+
+
 def _reports(reports) -> list[tuple]:
     """A blocked run's reports as plain values (plans by their final
     validity and message count)."""
@@ -272,11 +412,13 @@ def gather(per_rank: list, pick) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def port_cases(mesh) -> dict:
-    """This rank's outputs of every case: the all-reduce's, then the QR's."""
-    return {"allreduce": port_allreduce(mesh), "qr": port_qr(mesh)}
+    """This rank's outputs of every case: the all-reduce's, the QR's, then
+    PowerSGD's."""
+    return {"allreduce": port_allreduce(mesh), "qr": port_qr(mesh),
+            "powersgd": port_powersgd(mesh)}
 
 
-PARTS = ("allreduce", "qr")
+PARTS = ("allreduce", "qr", "powersgd")
 
 
 def _both_sides(tmp: Path) -> tuple[list, dict]:
@@ -284,7 +426,7 @@ def _both_sides(tmp: Path) -> tuple[list, dict]:
     :data:`P` CPU ranks (rendezvous under ``tmp``), and the reference's
     outputs of the same cases from this module run as a script with
     ``XLA_FLAGS`` forcing :data:`P` host devices, once for each part.  The
-    world and the two scripts run at the same time."""
+    world and the three scripts run at the same time."""
     from repro_torch.collective.dist import run_ranks
 
     root = Path(__file__).resolve().parent.parent
@@ -313,10 +455,10 @@ def _both_sides(tmp: Path) -> tuple[list, dict]:
 
 
 def both_sides(tmp_path_factory, part: str) -> tuple[list, dict]:
-    """``(port, reference)`` for ``part`` (``"allreduce"`` or ``"qr"``): the
+    """``(port, reference)`` for ``part`` (one of :data:`PARTS`): the
     port's per-rank outputs and the reference's outputs.
 
-    Both parts are computed once per test session, in one world and one
+    Every part is computed once per test session, in one world and one
     reference subprocess a part: the first module to ask computes them under a
     file lock in the session's temporary directory (shared by the xdist
     workers of one run) and pickles them there; every later ask reads that
@@ -513,6 +655,140 @@ def _reference_qr() -> dict:
     return out
 
 
+def _reference_powersgd() -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import PartitionSpec as Spec
+    from repro.collective import FaultSpec, ShardMapComm
+    from repro.compat import make_mesh, shard_map
+    from repro.launch import mesh as launch_mesh
+    from repro.optim import powersgd
+
+    out: dict = {}
+    out["mesh_errors"] = {name: _error(lambda fn=fn, kw=kw: getattr(launch_mesh, fn)(**kw))
+                          for name, fn, kw in MESH_CALLS}
+    smoke = {}
+    for dims in SMOKE_MESHES:
+        small = launch_mesh.make_smoke_mesh(*dims)
+        smoke[dims] = (dict(small.shape), tuple(dev.id for dev in small.devices.flat))
+    out["smoke"] = smoke
+    D, M, m_loc, n, r = (PSGD[k] for k in ("D", "M", "m_loc", "n", "r"))
+    grid = make_mesh((D, M), ("data", "model"))
+    out["grid"] = (dict(grid.shape), tuple(dev.id for dev in grid.devices.flat))
+    ins = {k: jnp.asarray(v) for k, v in powersgd_inputs().items()}
+    flat = Spec(("data", "model"))
+
+    def per_rank(body, *args):
+        return np.asarray(jax.jit(shard_map(body, mesh=grid, in_specs=(flat,) * len(args),
+                                            out_specs=flat))(*args))
+
+    coll = {}
+    for axis in AXES:
+        coll[("psum", axis)] = per_rank(lambda b, axis=axis: lax.psum(b[0], axis)[None],
+                                        ins["coll"])
+        coll[("pmean", axis)] = per_rank(lambda b, axis=axis: lax.pmean(b[0], axis)[None],
+                                         ins["coll"])
+        coll[("all_gather", axis)] = per_rank(
+            lambda b, axis=axis: lax.all_gather(b[0], axis, axis=0, tiled=True)[None],
+            ins["coll"])
+
+        def grad(b, c, axis=axis):
+            def loss(v):
+                return jnp.sum(lax.all_gather(v, axis, axis=0, tiled=True) * c[0])
+
+            return jax.grad(loss)(b[0])[None]
+
+        coll[("grad", axis)] = per_rank(grad, ins["coll"], ins[f"cot_{axis}"])
+    out["coll"] = coll
+
+    comm = ShardMapComm(M, "model")
+    blocks = Spec("data", "model", None)
+    runs = {}
+    for label, ef, deaths, variant in PSGD_RUNS:
+        cfg = powersgd.PowerSGDConfig(rank=r, error_feedback=ef, variant=variant)
+        fs = FaultSpec.of(deaths) if deaths else None
+        counts = {}
+
+        def body(g_blk, e_blk, q, cfg=cfg, fs=fs, ef=ef, counts=counts):
+            state = {"q": q, "e": e_blk[0] if ef else None}
+            ghat, new, stats = powersgd.compress_grad(
+                g_blk[0], state, comm, cfg=cfg, psum_data=lambda v: lax.psum(v, "data"),
+                psum_model=lambda v: lax.psum(v, "model"), n_data=D, fault_spec=fs)
+            counts["bytes"] = (stats["data_bytes_compressed"], stats["data_bytes_dense"])
+            e_new = new["e"] if ef else jnp.zeros_like(ghat)
+            return ghat[None], new["q"][None], e_new[None], stats["valid"][None]
+
+        f = jax.jit(shard_map(body, mesh=grid, in_specs=(blocks, blocks, Spec()),
+                              out_specs=(blocks, flat, blocks, flat)))
+        ghat, q, e, valid = f(ins["g"], ins["e0"], ins["q0"])
+        runs[label] = (np.asarray(ghat), np.asarray(q), np.asarray(e) if ef else None,
+                       np.asarray(valid), *counts["bytes"])
+    out["psgd"] = runs
+    out["example"] = _reference_example(grid)
+    return out
+
+
+def _reference_example(mesh) -> dict:
+    """``examples/powersgd_dp.py``'s training loop on :func:`example_inputs`
+    for :data:`EXAMPLE_STEPS` steps with the fault on step
+    :data:`EXAMPLE_FAULT`: its step function, specs and loss line as the
+    example writes them."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import PartitionSpec as Spec
+    from repro.collective import FaultSpec, ShardMapComm
+    from repro.compat import shard_map
+    from repro.optim import powersgd
+
+    ex = EXAMPLE
+    D, M, LR = ex["D"], ex["M"], ex["LR"]
+    ins = {k: jnp.asarray(v) for k, v in example_inputs().items()}
+    x, y, w1, w2, q1 = (ins[k] for k in ("x", "y", "w1", "w2", "q1"))
+    e1 = jnp.zeros((ex["DIN"], ex["DH"]), jnp.float32)
+    psgd_cfg = powersgd.PowerSGDConfig(rank=ex["RANK"], error_feedback=True,
+                                       variant="selfhealing")
+    comm = ShardMapComm(M, "model")
+
+    def loss_fn(w1_blk, w2_full, xb, yb):
+        w1_full = lax.all_gather(w1_blk, "model", axis=0, tiled=True)
+        pred = jnp.maximum(xb @ w1_full, 0) @ w2_full
+        return jnp.mean((pred - yb) ** 2)
+
+    def make_step(fault_spec):
+        def step(w1_blk, w2_full, q, e, xb, yb):
+            g1_blk, g2 = jax.grad(loss_fn, argnums=(0, 1))(w1_blk, w2_full, xb[0], yb[0])
+            g2_mean = lax.pmean(g2, "data")
+            state = {"q": q, "e": e}
+            g1_hat, new_state, stats = powersgd.compress_grad(
+                g1_blk, state, comm, cfg=psgd_cfg,
+                psum_data=lambda v: lax.psum(v, "data"),
+                psum_model=lambda v: lax.psum(v, "model"),
+                n_data=D, fault_spec=fault_spec)
+            return (w1_blk - LR * g1_hat, w2_full - LR * g2_mean,
+                    new_state["q"], new_state["e"],
+                    jnp.asarray(stats["data_bytes_compressed"]),
+                    jnp.asarray(stats["data_bytes_dense"]))
+
+        return jax.jit(shard_map(
+            step, mesh=mesh,
+            in_specs=(Spec("model", None), Spec(), Spec(), Spec("model", None),
+                      Spec("data", None, None), Spec("data", None, None)),
+            out_specs=(Spec("model", None), Spec(), Spec(), Spec("model", None), Spec(), Spec()),
+        ))
+
+    step_ok, step_fault = make_step(None), make_step(FaultSpec.of({1: 1}))
+    losses = []
+    for i in range(EXAMPLE_STEPS):
+        fn = step_fault if i == EXAMPLE_FAULT else step_ok
+        w1, w2, q1, e1, b_comp, b_dense = fn(w1, w2, q1, e1, x, y)
+        losses.append(float(jnp.mean((jnp.maximum(x[0] @ w1, 0) @ w2 - y[0]) ** 2)))
+    shards = {s.device.id: np.asarray(s.data) for s in e1.addressable_shards}
+    return {"losses": losses, "w1": np.asarray(w1), "w2": np.asarray(w2), "q": np.asarray(q1),
+            "e": [shards[i] for i in range(P)], "bytes": (int(b_comp), int(b_dense))}
+
+
 if __name__ == "__main__":
     import warnings
 
@@ -521,6 +797,7 @@ if __name__ == "__main__":
 
     warnings.simplefilter("ignore", DeprecationWarning)
     result = {"devices": jax.device_count()}
-    result.update(_reference_allreduce() if sys.argv[2] == "allreduce" else _reference_qr())
+    result.update({"allreduce": _reference_allreduce, "qr": _reference_qr,
+                   "powersgd": _reference_powersgd}[sys.argv[2]]())
     with open(sys.argv[1], "wb") as f:
         pickle.dump(result, f)

@@ -43,7 +43,9 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.models.transformer", "repro_torch.models.frontends",
             "repro_torch.models.ssm", "repro_torch.models.hybrid", "repro_torch.models.encdec",
             "repro_torch.runtime.trainer", "repro_torch.runtime.elastic",
-            "repro_torch.launch.train", "repro_torch.kernels.autotune",
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.powersgd_dp", "repro_torch.collective.dist",
+            "repro_torch.kernels.autotune",
             "repro_torch.kernels.backend", "repro_torch.bench.schema",
             "repro_torch.bench.registry", "repro_torch.bench.runner",
             "repro_torch.bench.compare", "repro_torch.bench.__main__",
